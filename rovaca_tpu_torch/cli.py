@@ -6,9 +6,11 @@ Counterpart of rovaca_tpu/cli.py with the same tools and flags:
         -o out.vcf
 
 ``--pairhmm-engine`` is auto|cuda|torch|native; auto is cuda and fails
-without a card. Not ported yet, and refused with a message: ``--shards`` > 1
-and ``-t`` > 1 (both start processes that import jax), and multi-process
-runs (``jax.distributed``).
+without a card. ROVACA_BANDED_REALIGN=1 in the environment routes the
+realignment of reads to their best haplotype through the banded SW kernel on
+the engine's device. Not ported yet, and refused with a message:
+``--shards`` > 1 and ``-t`` > 1 (both start processes that import jax), and
+multi-process runs (``jax.distributed``).
 """
 
 import argparse
@@ -144,7 +146,9 @@ def run_haplotype_caller(argv, stats=None):
     print(f"[rovaca_tpu_torch] {result['reads']} reads, {result['regions']} "
           f"regions, {result['calls']} records in {dt:.1f}s "
           f"({result['launches']} launches, "
-          f"{result['device_ms'] / 1e3:.2f}s on the card)", file=sys.stderr)
+          f"{result['device_ms'] / 1e3:.2f}s on the card; banded SW "
+          f"{result['sw_launches']} launches, {result['sw_fallbacks']} "
+          f"fallbacks)", file=sys.stderr)
     return 0
 
 
@@ -201,7 +205,7 @@ def run_index_feature_file(argv, stats=None):
 def main(argv=None, stats=None):
     """Run one tool; returns its exit code. A dict passed as ``stats``
     receives the HaplotypeCaller's counters (reads, regions, calls,
-    launches, device_ms, wall_s)."""
+    launches, device_ms, sw_launches, sw_fallbacks, wall_s)."""
     argv = argv if argv is not None else sys.argv[1:]
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: rovaca_tpu_torch <tool> [options]\n\ntools:")

@@ -6,32 +6,19 @@
 // contract: G explicit (hap-tile, read-tile) pairs, each tile 8 haps x 128
 // reads, output (G, 8, 128) float32 raw forward sums scaled by 2^120.
 //
-// What bounds it on the H100: the forward recurrence is a chain of
-// dependent float ops per cell (M needs the diagonal, I the cell above, D
-// the cell to the left), about a dozen flops per cell against a handful of
-// input bytes per read row and hap column. So the limit is the latency of
-// the anti-diagonal chain and the issue rate of the SMs, not bytes.
-//
-// Design (the gpuPairHMM scheme, not the TPU's 4x8 register blocking):
-// - one warp scores one (read, hap) pair; its 32 lanes hold 32 consecutive
-//   read rows (a strip) and sweep hap columns along anti-diagonals, so 32
-//   cells advance per step with no barrier. The row above a lane arrives
-//   from the lane below by __shfl_up_sync; the diagonal is the previous
-//   step's row-above value, kept in a register.
-// - the strip's last row (M, I, D over the hap's columns) waits in shared
-//   memory for lane 0 of the next strip; at most 12 KB a warp for Lh 1024.
-// - only each pair's own rlen x hlen cells are swept: rows past the read's
-//   end and columns past the hap's end are never computed, and the result is
-//   summed on the fly by the lane that holds row rlen-1.
-// - a block owns one (tile pair, hap) and its warps take the 128 reads of
-//   the read tile in turn, so the hap's codes and the (128,) ph2pr and
-//   match-to-match tables are staged in shared memory once a block. The
-//   eight f32 channels are looked up per read row from the uint8 quals and
-//   never go through HBM; neither does a lane-broadcast hap tensor.
-// Many warps per SM hide the shuffle/FMA latency of one warp's chain.
+// The per-pair sweep (one warp per (read, hap) pair, anti-diagonals over
+// hap columns) is pair_forward in pairhmm_forward.cuh, shared with the dense
+// kernel; see there for what bounds it and why it is laid out so. Here a
+// block owns one (tile pair, hap) and its warps take the 128 reads of the
+// read tile in turn, so the hap's codes and the (128,) ph2pr and
+// match-to-match tables are staged in shared memory once a block. The eight
+// f32 channels are looked up per read row from the uint8 quals and never go
+// through HBM; neither does a lane-broadcast hap tensor.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pairhmm_forward.cuh"
 
 namespace {
 
@@ -39,12 +26,31 @@ constexpr int kReadTile = 128;
 constexpr int kHapTile = 8;
 constexpr int kWarps = 4;
 constexpr int kTable = 128;
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline size_t smem_bytes(int Lh) {
   // tables, then per warp one row of M, I, D, then the hap codes
   return sizeof(float) * (2 * kTable + 3 * (size_t)kWarps * Lh) + Lh;
 }
+
+// Channels of one read row, looked up from its uint8 quals and the tables.
+struct QualRows {
+  const uint8_t* q;
+  const uint8_t* gi;
+  const uint8_t* gc;
+  const int8_t* rbase;
+  const float* s_ph2pr;
+  const float* s_m2m;
+  size_t base;  // offset of row 0 of this read in the (NR, Lr, 128) stacks
+
+  __device__ __forceinline__ rovaca::RowChannels operator()(int i) const {
+    const size_t off = base + (size_t)i * kReadTile;
+    const float p_gi = s_ph2pr[gi[off] & 127];
+    const float p_gc = s_ph2pr[gc[off] & 127];
+    const float p_q = s_ph2pr[q[off] & 127];
+    return {s_m2m[gi[off] & 127], 1.f - p_gc, p_gi, p_gc, p_gi, p_gc,
+            p_q / 3.f, 1.f - p_q, rbase[off]};
+  }
+};
 
 __global__ void __launch_bounds__(kWarps * 32)
 pairhmm_indexed_kernel(const uint8_t* __restrict__ q,
@@ -103,73 +109,10 @@ pairhmm_indexed_kernel(const uint8_t* __restrict__ q,
       if (lane == 0) out_gh[read] = 0.f;
       continue;
     }
-    float acc = 0.f;
-    for (int i0 = 0; i0 < rl; i0 += 32) {
-      const int i = i0 + lane;
-      const bool row_ok = i < rl;
-      const int nrows = min(32, rl - i0);
-      float mm = 0.f, gapm = 0.f, mi = 0.f, ii = 0.f, md = 0.f, dd = 0.f;
-      float distm = 0.f, one_distm = 0.f;
-      int rb = 0;
-      if (row_ok) {
-        const size_t off = ((size_t)rt * Lr + i) * kReadTile + read;
-        const float p_gi = s_ph2pr[gi[off] & 127];
-        const float p_gc = s_ph2pr[gc[off] & 127];
-        const float p_q = s_ph2pr[q[off] & 127];
-        mm = s_m2m[gi[off] & 127];
-        gapm = 1.f - p_gc;
-        mi = p_gi;
-        ii = p_gc;
-        md = p_gi;
-        dd = p_gc;
-        distm = p_q / 3.f;
-        one_distm = 1.f - p_q;
-        rb = rbase[off];
-      }
-      // own cell at column j-1 (starts as column -1: all zero), and the
-      // row-above cell one column back (the diagonal of the next step)
-      float mc = 0.f, ic = 0.f, dc = 0.f;
-      float m_dg = 0.f, i_dg = 0.f;
-      float d_dg = (i0 == 0 && lane == 0) ? init_d : 0.f;
-      const int nsteps = hl + nrows - 1;
-      for (int t = 0; t < nsteps; ++t) {
-        const int j = t - lane;
-        // row above at column j: the lower lane's cell from the last step
-        float m_up = __shfl_up_sync(kFull, mc, 1);
-        float i_up = __shfl_up_sync(kFull, ic, 1);
-        float d_up = __shfl_up_sync(kFull, dc, 1);
-        if (lane == 0) {
-          if (i0 == 0) {
-            m_up = 0.f;
-            i_up = 0.f;
-            d_up = init_d;
-          } else if (t < hl) {
-            m_up = row_m[t];
-            i_up = row_i[t];
-            d_up = row_d[t];
-          }
-        }
-        if (row_ok && j >= 0 && j < hl) {
-          const float prior = (rb & s_hap[j]) != 0 ? one_distm : distm;
-          const float m = prior * (m_dg * mm + (i_dg + d_dg) * gapm);
-          const float ins = m_up * mi + i_up * ii;
-          const float del = mc * md + dc * dd;
-          mc = m;
-          ic = ins;
-          dc = del;
-          if (lane == 31) {  // strip's last row feeds the next strip
-            row_m[j] = m;
-            row_i[j] = ins;
-            row_d[j] = del;
-          }
-          if (i == rl - 1) acc += m + ins;
-        }
-        m_dg = m_up;
-        i_dg = i_up;
-        d_dg = d_up;
-      }
-      __syncwarp();
-    }
+    const QualRows rows{q, gi, gc, rbase, s_ph2pr, s_m2m,
+                        ((size_t)rt * Lr) * kReadTile + read};
+    const float acc = rovaca::pair_forward(rows, rl, s_hap, hl, init_d, row_m,
+                                           row_i, row_d);
     if (lane == (rl - 1) % 32) out_gh[read] = acc;
   }
 }

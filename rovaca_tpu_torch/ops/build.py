@@ -3,8 +3,10 @@
 The counterpart of rovaca_tpu/native/build.py for nvcc. A library exposes a
 plain C interface and is loaded with ctypes, so no PyTorch header is compiled
 and a build takes seconds. The first use compiles into ``build/kernels/`` at
-the repository root; later uses load the cached library, rebuilt when the
-source's mtime is newer. A failed build raises with nvcc's output.
+the repository root; later uses load the cached library, rebuilt when any
+file in csrc/ is newer than it (a .cu includes the shared headers there). A
+failed build raises with nvcc's output. Different libraries build in
+parallel from separate threads; one library builds once.
 """
 
 import ctypes
@@ -21,6 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
+_BUILD_LOCKS = {}
 _LIBS = {}
 
 
@@ -39,6 +42,15 @@ def nvcc():
                        "build only on a host with the CUDA toolkit")
 
 
+def is_stale(out, src_dir=CSRC):
+    """True when ``out`` is missing or older than any file in ``src_dir``."""
+    if not os.path.exists(out):
+        return True
+    built = os.path.getmtime(out)
+    return any(os.path.getmtime(e.path) > built
+               for e in os.scandir(src_dir) if e.is_file())
+
+
 def shared_lib(name):
     """Compile csrc/<name>.cu -> build/kernels/lib<name>.so if stale; return
     its path. nvcc's messages (ptxas register/shared-memory report included)
@@ -46,8 +58,9 @@ def shared_lib(name):
     src = os.path.join(CSRC, f"{name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     with _LOCK:
-        if (os.path.exists(out)
-                and os.path.getmtime(out) >= os.path.getmtime(src)):
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if not is_stale(out):
             return out
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"

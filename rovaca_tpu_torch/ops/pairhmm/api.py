@@ -4,6 +4,9 @@ Counterpart of rovaca_tpu/ops/pairhmm/api.py. The best-4.5 cap and the
 poorly-modelled-read filter are imported unchanged. ``log10_with_rescue`` is
 the port's own: rovaca_tpu's version falls back to a jax float64 forward
 when the native library is missing, and this package never imports jax.
+``pairhmm_raw`` scores a dense ``prep.PairBatch`` on the dense kernel (K2),
+its plain version or the native engine; ``compute_likelihoods``, the
+library entry, runs it and then ``finish_scores``.
 """
 
 import numpy as np
@@ -17,7 +20,8 @@ from rovaca_tpu.ops.pairhmm.api import normalize_likelihoods, \
 
 from ...utils import platform
 from . import compact
-from .indexed import pairhmm_indexed_compact, pairhmm_indexed_compact_torch
+from .dense import pairhmm_dense
+from .indexed import pairhmm_indexed_compact_torch
 
 ENGINES = ("cuda", "torch", "native")
 
@@ -131,31 +135,32 @@ def finish_scores(raw_matrix, reads, haps, pcr_model, min_quality_threshold):
     return lik_rh[kept].T.copy(), kept
 
 
+def pairhmm_raw(batch, engine="auto"):
+    """Forward over a dense ``prep.PairBatch`` -> (GH, GR, 8, 128) np.f32:
+    the dense CUDA kernel ('cuda'), its plain version on the CPU ('torch'),
+    or the host C++ engine ('native')."""
+    engine = resolve_engine(engine)
+    inputs = (batch.trans, batch.rbase, batch.rlen, batch.hbase, batch.hlen)
+    if engine == "native":
+        if not pairhmm_native.available():
+            raise RuntimeError("native pairhmm engine unavailable "
+                               "(g++ build failed?)")
+        return pairhmm_native.pairhmm_dense(*inputs)
+    out = pairhmm_dense(*compact.to_device(inputs, engine_device(engine)))
+    return out.cpu().numpy()
+
+
 def compute_likelihoods(reads, haps, pcr_model="CONSERVATIVE",
                         min_quality_threshold=C.MIN_QUALITY_THRESHOLD,
                         engine="auto"):
-    """Score all (read, hap) pairs with engine cuda, torch or native.
+    """Score all (read, hap) pairs with engine cuda, torch or native: a
+    dense batch, ``pairhmm_raw``, then ``finish_scores``.
 
     Returns (likelihoods, kept_indices): likelihoods is an
     (n_haps, n_kept_reads) float64 log10 matrix; kept_indices maps its read
     columns back into `reads` after poorly-modelled-read removal.
     """
-    engine = resolve_engine(engine)
-    if engine == "native":
-        if not pairhmm_native.available():
-            raise RuntimeError("native pairhmm engine unavailable "
-                               "(g++ build failed?)")
-        b = prep.build_pair_batch(reads, haps, pcr_model=pcr_model,
-                                  min_quality_threshold=min_quality_threshold)
-        raw = b.result_matrix(pairhmm_native.pairhmm_dense(
-            b.trans, b.rbase, b.rlen, b.hbase, b.hlen))
-    else:
-        b = compact.build_pair_batch_compact(
-            reads, haps, pcr_model=pcr_model,
-            min_quality_threshold=min_quality_threshold)
-        hidx, ridx = all_pairs(b)
-        out = pairhmm_indexed_compact(*compact.to_device(
-            b.arrays() + (hidx, ridx), engine_device(engine)))
-        raw = b.result_matrix(out.cpu().numpy().reshape(
-            b.gh, b.gr, prep.HAP_TILE, prep.READ_TILE))
+    b = prep.build_pair_batch(reads, haps, pcr_model=pcr_model,
+                              min_quality_threshold=min_quality_threshold)
+    raw = b.result_matrix(pairhmm_raw(b, engine))
     return finish_scores(raw, reads, haps, pcr_model, min_quality_threshold)

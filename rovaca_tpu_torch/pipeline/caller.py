@@ -6,12 +6,13 @@ streams, contig validation and ``HCArgs`` are inherited unchanged; ``run`` and
 
 - no XLA compile cache and no compile prewarm of launch shapes;
 - ``--profile-dir`` records a torch.profiler trace instead of jax.profiler;
-- each flush group is scored by this package's ``PairHMMScheduler``.
+- each flush group is scored by this package's ``PairHMMScheduler``;
+- regions are genotyped by this package's ``RegionCaller``, whose
+  realignment runs the banded SW kernel on the engine's device when
+  ROVACA_BANDED_REALIGN is set (the native SW batch otherwise).
 
 Region prep, activity, trimming, genotyping, reference confidence, the block
-combiner and the VCF writer are rovaca_tpu's own. Realignment stays on the
-native SW batch (its banded-kernel gate reads rovaca_tpu's scheduler probe,
-which nothing here sets).
+combiner and the VCF writer are rovaca_tpu's own.
 """
 
 import dataclasses
@@ -25,39 +26,33 @@ from rovaca_tpu.pipeline import activity
 from rovaca_tpu.pipeline import caller as _ref
 from rovaca_tpu.pipeline.caller import (WINDOW_MARGIN, WINDOW_SIZE, HCArgs,
                                         RegionBatchSim, parse_span)
-from rovaca_tpu.pipeline.hc_engine import CallerConfig, RegionCaller
 
 from ..ops.pairhmm.api import engine_device, resolve_engine
+from .hc_engine import CallerConfig, RegionCaller
 from .scheduler import PairHMMScheduler
 
 __all__ = ["HCArgs", "HaplotypeCaller", "parse_span"]
 
 
-def _banded_realign_requested():
-    env = os.environ.get("ROVACA_BANDED_REALIGN")
-    return env is not None and env not in ("0", "false", "")
-
-
 class HaplotypeCaller(_ref.HaplotypeCaller):
     """rovaca_tpu's HaplotypeCaller with PairHMM scoring on the port's
-    engines. ``stats`` gains ``launches`` (indexed-forward launches) and
-    ``device_ms`` (card time of those launches)."""
+    engines. ``stats`` gains ``launches`` (indexed-forward launches),
+    ``device_ms`` (card time of those launches), ``sw_launches`` (banded SW
+    batches of the realignment) and ``sw_fallbacks`` (alignments of those
+    batches sent to the host SW)."""
 
     def __init__(self, args):
         if args.host_workers and args.host_workers > 1:
             raise ValueError(
                 "-t/--host-workers > 1 is not ported yet: its worker "
                 "processes pin jax to the CPU (a later PR ports them)")
-        if _banded_realign_requested():
-            raise ValueError(
-                "ROVACA_BANDED_REALIGN needs the banded Smith-Waterman "
-                "kernel, which is not ported yet (a later PR ports it)")
         # fail before any IO when the engine is unknown or has no device
         engine = resolve_engine(args.pairhmm_engine)
         if engine != "native":
             engine_device(engine)
         super().__init__(args)
-        self.stats.update(launches=0, device_ms=0.0)
+        self.stats.update(launches=0, device_ms=0.0, sw_launches=0,
+                          sw_fallbacks=0)
 
     def run(self):
         args = self.args
@@ -151,6 +146,8 @@ class HaplotypeCaller(_ref.HaplotypeCaller):
             self.executor.close()
             if self.checkpoint is not None:
                 self.checkpoint.finish()
+        self.stats.update(sw_launches=caller.sw_launches,
+                          sw_fallbacks=caller.sw_fallbacks)
         rlog.teardown_counters(self.stats)
         return self.stats
 
