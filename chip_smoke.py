@@ -39,16 +39,33 @@ exits non-zero:
 7. region path: the port's ``RegionCaller.call_region`` (K2) over the first
    200+ active regions of the corpus, engine cuda then native: the same
    (pos, alleles, GT, GQ), PL within golden_e2e's PL_TOL, and K2 launched.
+8. device-list path: every visible card named twice. A PairHMMScheduler
+   over that list against a one-card scheduler on the same jobs (lik and
+   kept array-equal); ``sharded_pipeline_step`` (K1) and
+   ``sharded_pairhmm_step`` (K2) at S = 4 shards against their plain
+   versions, held to K1's checks, and the global best within rtol 2e-5;
+   ``pipeline_dryrun(4)`` through the card.
+9. ``--shards 2`` on the corpus, cuda engine: each shard launches K1 and the
+   merged VCF passes scripts/race_e2e.depth_masked_diff against phase 5's
+   cuda VCF (the bar of tests/test_shard_confinement.py).
+10. ``-t 2`` on the corpus, cuda engine: K1 launched as often as the
+   scheduler counted, the VCF byte-identical to phase 5's.
+11. two torch.distributed ranks (gloo, torchrun's environment) on the card,
+   cuda engine: both exit 0 and launch K1, rank 0's merged VCF passes
+   depth_masked_diff against phase 5's.
 
-Every kernel's counter is set to 0 just before each of phases 5-7 and read
-just after. The line before the last is the kernels' JSON summary; the last
-line is ``{"ok": true, "device": {...}}``. Nothing of jax is imported.
+Every kernel's counter is set to 0 just before each of phases 5-8 and 10
+and read just after; phases 9 and 11 run in child processes, whose
+schedulers' launch counts their summary lines print. The line before the
+last is the kernels' JSON summary; the last line is ``{"ok": true, "device":
+{...}}``. Nothing of jax is imported.
 """
 
 import concurrent.futures
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -76,6 +93,7 @@ SW_ORACLE = 8          # alignments per shape also held to the python SW
 CORPUS = dict(genome_len=1_000_000, coverage=30, seed=424242)
 KERNELS = ("pairhmm_indexed", "pairhmm_dense", "sw_banded")
 MIN_REGIONS = 200
+SHARDS = 4             # shards of the sharded steps and the dryrun
 
 
 class PhaseError(Exception):
@@ -228,23 +246,32 @@ def phase_kernels(shapes=SHAPES):
     return summary
 
 
-def _check_forward(k_out, p_out, where, label, k_ms, p_ms, p_runs, cells):
-    """Hold a PairHMM kernel's raw output to its plain version's; prints one
-    line and returns the largest log10 error on kept pairs."""
+def _hold(k_out, p_out, where, label=None, timing=""):
+    """Hold a PairHMM kernel's raw output to its plain version's: finite,
+    rtol RTOL on pairs at or above MIN_ACCEPTED_F32, the same set below it,
+    exact zeros on padding. Prints one line when given a label; returns the
+    largest log10 error on kept pairs."""
     import numpy as np
     got, want = k_out.cpu().numpy(), p_out.cpu().numpy()
     check(np.all(np.isfinite(got)), f"non-finite kernel output at {where}")
     rel, log_err, same_rescue, pad_ok = compare(got, want)
-    n_resc = int(((want < 1e-28) & (want > 0)).sum())
-    print(f"{label}: max_rel={rel:.3e} max_abs_log10={log_err:.3e} "
-          f"rescue_set_equal={same_rescue} ({n_resc} below 1e-28) "
-          f"padding_zero={pad_ok} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"(plain runs {p_runs}) kernel_gcells_s={cells / k_ms / 1e6:.2f} "
-          f"plain_gcells_s={cells / p_ms / 1e6:.2f}", flush=True)
+    if label:
+        n_resc = int(((want < 1e-28) & (want > 0)).sum())
+        print(f"{label}: max_rel={rel:.3e} max_abs_log10={log_err:.3e} "
+              f"rescue_set_equal={same_rescue} ({n_resc} below 1e-28) "
+              f"padding_zero={pad_ok}{timing}", flush=True)
     check(rel <= RTOL, f"kernel vs plain max rel {rel} > {RTOL} at {where}")
     check(same_rescue, f"rescue sets differ at {where}")
     check(pad_ok, f"padding not exactly 0 at {where}")
     return log_err
+
+
+def _check_forward(k_out, p_out, where, label, k_ms, p_ms, p_runs, cells):
+    """_hold with the kernel's and the plain version's times on the line."""
+    return _hold(k_out, p_out, where, label,
+                 f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} (plain runs "
+                 f"{p_runs}) kernel_gcells_s={cells / k_ms / 1e6:.2f} "
+                 f"plain_gcells_s={cells / p_ms / 1e6:.2f}")
 
 
 def phase_dense(shapes=DENSE_SHAPES):
@@ -392,11 +419,11 @@ def read_counts():
             "pairhmm_dense": dense.LAUNCHES, "sw_banded": banded.LAUNCHES}
 
 
-def _hc(bam, ref, out, engine, stats):
+def _hc(bam, ref, out, engine, stats, *extra):
     from rovaca_tpu_torch import cli
     return cli.main(["HaplotypeCaller", "-i", bam, "-r", ref, "-o", out,
-                     "--pairhmm-engine", engine, "--log-level", "WARNING"],
-                    stats=stats)
+                     "--pairhmm-engine", engine, "--log-level", "WARNING",
+                     *extra], stats=stats)
 
 
 def _print_run(tag, engine, stats):
@@ -600,6 +627,255 @@ def phase_region_path(workdir):
     return {"launches": launches}
 
 
+class _Read:
+    def __init__(self, bases, quals, mapping_quality):
+        self.bases = bases
+        self.quals = quals
+        self.mapping_quality = mapping_quality
+
+
+def make_jobs(rng, n_jobs):
+    """Scheduler jobs shaped like the main path's regions: noisy fragments
+    of a random reference (1-260 reads of 30-150 bases) against 2-17
+    mutated, ragged haplotypes of 150-400 bases."""
+    import numpy as np
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    jobs = []
+    for key in range(n_jobs):
+        L = int(rng.integers(150, 400))
+        ref = rng.choice(acgt, L)
+        haps = []
+        for _ in range(int(rng.integers(2, 18))):
+            h = ref.copy()
+            snp = rng.random(L) < 0.01
+            h[snp] = rng.choice(acgt, int(snp.sum()))
+            haps.append(h[:int(rng.integers(L // 2, L + 1))].tobytes())
+        reads = []
+        for _ in range(int(rng.integers(1, 261))):
+            rl = int(rng.integers(30, 151))
+            s = int(rng.integers(0, L - 30))
+            frag = ref[s:s + rl].copy()
+            err = rng.random(len(frag)) < 0.01
+            frag[err] = rng.choice(acgt, int(err.sum()))
+            reads.append(_Read(frag.tobytes(),
+                               rng.integers(5, 41, len(frag)).astype(np.uint8),
+                               int(rng.integers(20, 61))))
+        jobs.append((key, reads, haps))
+    return jobs
+
+
+def phase_device_list():
+    """The launches spread over a device list: every visible card named
+    twice. The scheduler against a one-card scheduler (array-equal), the
+    sharded K1 and K2 steps at S = 4 against their plain versions, and the
+    multi-device dryrun through the card. Returns the path's launches."""
+    import numpy as np
+    import torch
+    from rovaca_tpu_torch.ops.pairhmm import compact, dense, indexed
+    from rovaca_tpu_torch.parallel.pipeline_shard import (
+        pipeline_dryrun, sharded_pipeline_step)
+    from rovaca_tpu_torch.parallel.sharding import sharded_pairhmm_step
+    from rovaca_tpu_torch.pipeline.scheduler import PairHMMScheduler
+    from rovaca_tpu_torch.utils import platform
+    devices = platform.devices() * 2
+    rng = np.random.default_rng(20261019)
+    jobs = make_jobs(rng, 120)
+    k1 = make_batch(rng, *TIMED_SHAPE)[0]
+    k1_shards = [np.stack(parts) for parts in
+                 zip(k1, *(make_batch(rng, *TIMED_SHAPE)[0]
+                           for _ in range(SHARDS - 1)))]
+    k2_shards = []
+    for _ in range(SHARDS):
+        arrays = compact.to_device(make_batch(rng, *DENSE_TIMED,
+                                              16 * DENSE_TILES)[0][:7],
+                                   devices[0])
+        q, gi, gc, rbase, rlen, hcode, hlen = arrays
+        k2_shards.append((compact.materialize_channels(q, gi, gc), rbase.int(),
+                          rlen, compact.broadcast_haps(hcode), hlen))
+    k2_shards = [torch.stack(parts) for parts in zip(*k2_shards)]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    results, launches = {}, {}
+    for name, devs in (("list", devices), ("one", devices[:1])):
+        sched = PairHMMScheduler(engine="cuda", devices=devs)
+        for key, reads, haps in jobs:
+            sched.submit(key, reads, haps)
+        results[name] = sched.run()
+        launches[name] = sched.launches
+    k1_out = sharded_pipeline_step(devices, *(torch.from_numpy(x)
+                                              for x in k1_shards))
+    k2_out, k2_best = sharded_pairhmm_step(devices, *k2_shards)
+    n_records = pipeline_dryrun(SHARDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[devices] {len(devices)} devices {[str(d) for d in devices]}: "
+          f"scheduler launches list={launches['list']} one={launches['one']}"
+          f", dryrun records={n_records}, K1 launches="
+          f"{counts['pairhmm_indexed']} K2 launches={counts['pairhmm_dense']}"
+          f" wall_s={wall:.3f}", flush=True)
+    check(launches["list"] == launches["one"] > 1,
+          f"scheduler launches {launches}")
+    check(counts["pairhmm_indexed"] == 2 * launches["one"] + 2 * SHARDS,
+          f"K1 counted {counts['pairhmm_indexed']} launches")
+    check(counts["pairhmm_dense"] > SHARDS,
+          f"K2 counted {counts['pairhmm_dense']} launches")
+    for key, _, _ in jobs:
+        (lik_l, kept_l), (lik_o, kept_o) = (results["list"][key],
+                                            results["one"][key])
+        check(np.array_equal(kept_l, kept_o) and np.array_equal(lik_l, lik_o),
+              f"device-list scheduler differs from one device at job {key}")
+
+    errs = {"K1": 0.0, "K2": 0.0}
+    best = 0.0
+    for s in range(SHARDS):
+        want = indexed.pairhmm_indexed_compact_torch(
+            *compact.to_device([x[s] for x in k1_shards], devices[0]))
+        errs["K1"] = max(errs["K1"], _hold(k1_out[s], want,
+                                           f"sharded K1 shard {s}"))
+        want = dense.pairhmm_dense_torch(*(x[s] for x in k2_shards))
+        best = max(best, float(want.max()))
+        errs["K2"] = max(errs["K2"], _hold(k2_out[s], want,
+                                           f"sharded K2 shard {s}"))
+    print(f"[devices] sharded steps at S={SHARDS} against the plain "
+          f"versions: K1 max_abs_log10={errs['K1']:.3e} K2 max_abs_log10="
+          f"{errs['K2']:.3e} K2 global_best={float(k2_best):.6e} "
+          f"(plain {best:.6e})", flush=True)
+    check(abs(float(k2_best) - best) <= RTOL * best,
+          f"sharded K2 global best {float(k2_best)} vs plain {best}")
+    check("jax" not in sys.modules, "jax was imported")
+    return {"pairhmm_indexed": counts["pairhmm_indexed"],
+            "pairhmm_dense": counts["pairhmm_dense"], "sw_banded":
+            counts["sw_banded"], "wall_s": wall}
+
+
+_SUMMARY = re.compile(r"\[rovaca_tpu_torch\] (\d+) reads, (\d+) regions, "
+                      r"(\d+) records in ([\d.]+)s \((\d+) launches")
+
+
+def _summaries(stderr):
+    """(reads, regions, records, wall_s, K1 launches) of every HaplotypeCaller
+    summary line a CLI process and the processes it started printed."""
+    return [(int(a), int(b), int(c), float(d), int(e))
+            for a, b, c, d, e in _SUMMARY.findall(stderr)]
+
+
+def _cli_env():
+    """This environment with the checkout importable by child processes."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _cli_cmd(workdir, out, *extra):
+    return [sys.executable, "-m", "rovaca_tpu_torch.cli", "HaplotypeCaller",
+            "-i", os.path.join(workdir, "sample.bam"),
+            "-r", os.path.join(workdir, "ref.fa"), "-o", out,
+            "--pairhmm-engine", "cuda", "--log-level", "WARNING", *extra]
+
+
+def _masked_diff(workdir, path, tag):
+    """Hold a split run's VCF to phase 5's unsharded cuda VCF by
+    tests/test_shard_confinement.py's bar (scripts/race_e2e)."""
+    import race_e2e
+    ok, detail = race_e2e.depth_masked_diff(
+        os.path.join(workdir, "ours.vcf"), path,
+        bam_path=os.path.join(workdir, "sample.bam"))
+    print(f"[{tag}] records={len(_records(path))} against the unsharded "
+          f"cuda run ({len(_records(os.path.join(workdir, 'ours.vcf')))}): "
+          f"{detail}", flush=True)
+    check(ok, f"{tag} VCF diverges beyond the depth mask: {detail}")
+
+
+def phase_shards(workdir):
+    """``--shards 2`` on the corpus, cuda engine: two shard processes on the
+    card, their VCFs merged in genome order."""
+    out = os.path.join(workdir, "shards.vcf")
+    t0 = time.perf_counter()
+    res = subprocess.run(_cli_cmd(workdir, out, "--shards", "2"),
+                         env=_cli_env(), capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"--shards 2 exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    shards = _summaries(res.stderr)
+    merged = re.findall(r"sharded x2: .*", res.stderr)
+    print(f"[shards] wall_s={wall:.3f} ({merged}) shard (reads, regions, "
+          f"records, wall_s, K1 launches)={shards}", flush=True)
+    check(len(shards) == 2 and all(s[4] > 0 for s in shards),
+          f"expected two shards that launch K1: {shards}")
+    _masked_diff(workdir, out, "shards")
+    return {"wall_s": wall, "launches": sum(s[4] for s in shards)}
+
+
+def phase_host_workers(workdir):
+    """``-t 2`` on the corpus, cuda engine, in this process: two worker
+    processes prepare the regions, this one launches K1."""
+    import torch
+    out = os.path.join(workdir, "t2.vcf")
+    stats = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    rc = _hc(os.path.join(workdir, "sample.bam"),
+             os.path.join(workdir, "ref.fa"), out, "cuda", stats, "-t", "2")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(rc == 0, f"-t 2 run exited {rc}")
+    _print_run("workers", "cuda", stats)
+    check(counts["pairhmm_indexed"] == stats["launches"] > 0,
+          f"K1 counted {counts['pairhmm_indexed']} launches, the scheduler "
+          f"{stats['launches']}")
+    with open(out, "rb") as a, \
+            open(os.path.join(workdir, "ours.vcf"), "rb") as b:
+        check(a.read() == b.read(), "-t 2 VCF differs from the -t 1 VCF")
+    print("[workers] VCF byte-identical to the -t 1 cuda run", flush=True)
+    check("jax" not in sys.modules, "jax was imported")
+    return {"wall_s": stats["wall_s"], "launches": stats["launches"]}
+
+
+def phase_ranks(workdir):
+    """Two torch.distributed ranks (gloo, torchrun's environment) on the
+    one card, cuda engine; rank 0 merges."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(workdir, "ranks.vcf")
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(2):
+        env = _cli_env()
+        env.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(_cli_cmd(workdir, out), env=env,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+
+    def finish(p):
+        try:
+            _, err = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        return p.returncode, err, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        ends = list(pool.map(finish, procs))
+    for rank, (rc, err, wall) in enumerate(ends):
+        ranks = _summaries(err)
+        print(f"[ranks] rank {rank} exit={rc} wall_s={wall:.3f} (reads, "
+              f"regions, records, wall_s, K1 launches)={ranks}", flush=True)
+        check(rc == 0, f"rank {rank} exited {rc}: {err[-2000:]}")
+        check(ranks and all(r[4] > 0 for r in ranks),
+              f"rank {rank} made no K1 launch")
+    _masked_diff(workdir, out, "ranks")
+    check(not [f for f in os.listdir(workdir) if ".rank" in f],
+          "rank shard files left behind")
+    return {"wall_s": [e[2] for e in ends]}
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -633,6 +909,10 @@ def main():
             realign = timed("realignment path", phase_realign_path, workdir,
                             main_path["wall_s"])
             region = timed("region path", phase_region_path, workdir)
+            device_list = timed("device-list path", phase_device_list)
+            timed("--shards 2", phase_shards, workdir)
+            timed("-t 2", phase_host_workers, workdir)
+            timed("two ranks", phase_ranks, workdir)
     except PhaseError as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -641,6 +921,7 @@ def main():
          "source": "rovaca_tpu_torch/csrc/pairhmm_indexed.cu",
          "replaces": "rovaca_tpu/ops/pairhmm/indexed.py:74",
          "launches": main_path["launches"],
+         "device_list_launches": device_list["pairhmm_indexed"],
          "max_abs_err": k1["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -649,6 +930,7 @@ def main():
          "source": "rovaca_tpu_torch/csrc/pairhmm_dense.cu",
          "replaces": "rovaca_tpu/ops/pairhmm/kernel.py:175",
          "launches": region["launches"],
+         "device_list_launches": device_list["pairhmm_dense"],
          "max_abs_err": k2["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -658,6 +940,7 @@ def main():
          "source": "rovaca_tpu_torch/csrc/sw_banded.cu",
          "replaces": "rovaca_tpu/ops/sw/banded.py:242",
          "launches": realign["launches"],
+         "device_list_launches": device_list["sw_banded"],
          "max_abs_err": k3["max_abs_err"],
          "err_of": "bt, colm, lastrow and edge (integers, bit-equal)",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],

@@ -9,8 +9,12 @@ genotyping, the VCF writer and the g++ native libraries) is imported from
 - ``ops.pairhmm``: compact PairHMM batches, the indexed PairHMM forward as a
   plain torch version and as a hand-written CUDA kernel
   (``csrc/pairhmm_indexed.cu``), and host-side scoring with float64 rescue.
-- ``pipeline``: the flush-group scheduler and the caller seams.
-- ``cli``: ``python -m rovaca_tpu_torch.cli HaplotypeCaller ...``.
+- ``pipeline``: the flush-group scheduler (launches round-robin over the
+  cards) and the caller seams.
+- ``parallel``: ``--shards``, ``-t`` workers, ``torch.distributed`` ranks
+  and the sharded K1/K2 steps over a device list.
+- ``cli``: ``python -m rovaca_tpu_torch.cli HaplotypeCaller ...``;
+  ``entry``: the counterparts of ``__graft_entry__``'s entry points.
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,12 @@ Counterpart of rovaca_tpu/cli.py with the same tools and flags:
 ``--pairhmm-engine`` is auto|cuda|torch|native; auto is cuda and fails
 without a card. ROVACA_BANDED_REALIGN=1 in the environment routes the
 realignment of reads to their best haplotype through the banded SW kernel on
-the engine's device. Not ported yet, and refused with a message:
-``--shards`` > 1 and ``-t`` > 1 (both start processes that import jax), and
-multi-process runs (``jax.distributed``).
+the engine's device. ``--shards N`` runs N shard processes and merges their
+VCFs (parallel/sharded_runner.py), ``-t N`` prepares regions in N worker
+processes while this one launches the kernels (parallel/host_executor.py),
+and a torchrun environment (or rovaca_tpu's JAX_COORDINATOR_ADDRESS /
+JAX_NUM_PROCESSES / JAX_PROCESS_ID) makes each process one rank of a
+``torch.distributed`` run that rank 0 merges (parallel/distributed.py).
 """
 
 import argparse
@@ -61,8 +64,7 @@ def run_haplotype_caller(argv, stats=None):
                         "the CPU; native = host C++ engine")
     p.add_argument("--sample-name", default=None)
     p.add_argument("-t", "--host-workers", type=int, default=1,
-                   help="host worker processes for region preparation "
-                        "(only 1 is ported)")
+                   help="host worker processes for region preparation")
     p.add_argument("--assemble-output", default=None,
                    help="dump per-region reads+haplotypes for golden diffs")
     p.add_argument("--resume", action="store_true",
@@ -74,7 +76,8 @@ def run_haplotype_caller(argv, stats=None):
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler host/card trace here")
     p.add_argument("--shards", type=int, default=1,
-                   help="interval-sharded run (only 1 is ported)")
+                   help="interval-sharded data-parallel run: N shard "
+                        "processes with coordinate-ordered output merge")
     a = p.parse_args(argv)
 
     from rovaca_tpu import constants as C
@@ -91,14 +94,23 @@ def run_haplotype_caller(argv, stats=None):
             return 2
 
     if a.shards > 1:
-        print("error: --shards > 1 is not ported yet (its shard runner "
-              "imports jax); the multi-GPU PR ports it", file=sys.stderr)
-        return 2
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or \
-            os.environ.get("ROVACA_AUTO_DISTRIBUTED"):
-        print("error: multi-process runs (jax.distributed) are not ported "
-              "yet; the multi-GPU PR ports them", file=sys.stderr)
-        return 2
+        from rovaca_tpu_torch.parallel.sharded_runner import run_sharded
+        passthrough = []
+        it = iter(argv)
+        for tok in it:
+            if tok in ("-o", "--output", "--shards", "-L", "--target-span"):
+                next(it, None)
+                continue
+            passthrough.append(tok)
+        t0 = time.time()
+        try:
+            counts = run_sharded(passthrough, a.shards, a.output)
+        except RuntimeError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        print(f"[rovaca_tpu_torch] sharded x{a.shards}: {sum(counts)} "
+              f"records in {time.time() - t0:.1f}s", file=sys.stderr)
+        return 0
 
     bands = (tuple(int(x) for x in a.gq_bands.split(","))
              if a.gq_bands else C.DEFAULT_GVCF_GQ_BANDS)
@@ -136,7 +148,15 @@ def run_haplotype_caller(argv, stats=None):
                   profile_dir=a.profile_dir)
     t0 = time.time()
     try:
-        result = HaplotypeCaller(args).run()
+        # multi-process run: each process takes its interval shard and
+        # rank 0 merges (parallel/distributed.py)
+        from rovaca_tpu_torch.parallel import distributed
+        _, world = distributed.maybe_init_distributed()
+        if world > 1:
+            result = distributed.run_distributed(
+                args, lambda a: HaplotypeCaller(a).run())
+        else:
+            result = HaplotypeCaller(args).run()
     except ValueError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2

@@ -41,6 +41,13 @@ def engine_device(engine):
     return platform.device() if engine == "cuda" else torch.device("cpu")
 
 
+def engine_devices(engine):
+    """Devices a flush group's launches go round-robin over: every card of
+    ``platform.devices()`` for 'cuda' (raises without one), the CPU for
+    'torch'."""
+    return platform.devices() if engine == "cuda" else [torch.device("cpu")]
+
+
 def all_pairs(batch):
     """(hidx, ridx) covering every (hap tile, read tile) of one batch, in
     (GH, GR) row-major order."""

@@ -138,8 +138,17 @@ def pairhmm_indexed_compact_torch(q, gi, gc, rbase, rlen, hcode, hlen, hidx,
     q/gi/gc: (NR, Lr, 128) u8; rbase: (NR, Lr, 128) i8; rlen: (NR, 1, 128)
     i32; hcode: (NH, Lh, 8) i8; hlen: (NH, 8, 1) i32; hidx/ridx: (G,) i32.
     Returns (G, 8, 128) raw sums in ``dtype`` (float32, or float64 for the
-    rescue). Pairs are taken in chunks to bound memory.
+    rescue). A pair listed more than once is computed once (a padded launch
+    repeats its filler pair); pairs are taken in chunks to bound memory.
     """
+    if hidx.shape[0] > 1:
+        pairs, inverse = torch.unique(torch.stack([hidx, ridx], dim=1),
+                                      dim=0, return_inverse=True)
+        if pairs.shape[0] < hidx.shape[0]:
+            return pairhmm_indexed_compact_torch(
+                q, gi, gc, rbase, rlen, hcode, hlen,
+                pairs[:, 0].contiguous(), pairs[:, 1].contiguous(),
+                dtype)[inverse]
     G = hidx.shape[0]
     Lh = hcode.shape[1]
     out = torch.empty((G, 8, prep.READ_TILE), dtype=dtype, device=q.device)

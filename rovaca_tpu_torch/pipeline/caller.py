@@ -6,7 +6,10 @@ streams, contig validation and ``HCArgs`` are inherited unchanged; ``run`` and
 
 - no XLA compile cache and no compile prewarm of launch shapes;
 - ``--profile-dir`` records a torch.profiler trace instead of jax.profiler;
-- each flush group is scored by this package's ``PairHMMScheduler``;
+- each flush group is scored by this package's ``PairHMMScheduler``, its
+  launches spread over every card of ``platform.devices()``;
+- ``-t`` > 1 prepares regions in this package's ``HostExecutor`` workers,
+  which never touch the card;
 - regions are genotyped by this package's ``RegionCaller``, whose
   realignment runs the banded SW kernel on the engine's device when
   ROVACA_BANDED_REALIGN is set (the native SW batch otherwise).
@@ -42,10 +45,6 @@ class HaplotypeCaller(_ref.HaplotypeCaller):
     batches sent to the host SW)."""
 
     def __init__(self, args):
-        if args.host_workers and args.host_workers > 1:
-            raise ValueError(
-                "-t/--host-workers > 1 is not ported yet: its worker "
-                "processes pin jax to the CPU (a later PR ports them)")
         # fail before any IO when the engine is unknown or has no device
         engine = resolve_engine(args.pairhmm_engine)
         if engine != "native":
@@ -77,7 +76,7 @@ class HaplotypeCaller(_ref.HaplotypeCaller):
                               min_quality_threshold=args.base_quality_threshold,
                               max_mnp_distance=args.max_mnp_distance)
         caller = RegionCaller(config, self.fasta.contig_dict)
-        from rovaca_tpu.parallel.host_executor import HostExecutor
+        from ..parallel.host_executor import HostExecutor
         self.executor = HostExecutor(args.host_workers, config,
                                      self.fasta.contig_dict)
 

@@ -6,7 +6,9 @@ realignment, and with ROVACA_BANDED_REALIGN=1, the banded SW's plain version
 on the CPU) and ``rovaca_tpu.cli --pairhmm-engine xla``. (CHROM, POS, REF,
 ALT, GT) must be identical and the other fields within
 scripts/golden_e2e.py's QUAL_TOL, FLOAT_TOL and PL_TOL; GVCF band rows must
-be identical.
+be identical. Runs of the port's CLI in fresh interpreters (plain, banded,
+``--shards 2``, ``-t 2``) show that neither they nor any process they start
+imports jax; an incomplete multi-process environment is refused.
 """
 
 import json
@@ -84,55 +86,120 @@ def test_banded_realign_matches_reference(error_case, monkeypatch, gvcf):
     assert stats["sw_fallbacks"] >= 0
 
 
-def _run_without_jax(case, env_extra):
-    """The port's CLI (torch engine, GVCF) in a fresh interpreter; asserts
-    that jax never entered sys.modules. Returns the run's stats."""
+# Installed on PYTHONPATH by _run_without_jax: every interpreter started
+# with it (the CLI, its shard processes, -t workers, ranks) appends
+# "<pid> jax=<bool> <argv, or pool-worker>" to $ROVACA_TEST_MARKS as it
+# exits.
+_MARK_SITECUSTOMIZE = """\
+import atexit, os, sys
+
+def _mark():
+    mp = sys.modules.get("multiprocessing")
+    child = mp is not None and mp.parent_process() is not None
+    role = "pool-worker" if child else " ".join(sys.argv)[:300]
+    with open(os.environ["ROVACA_TEST_MARKS"], "a") as f:
+        f.write(f"{os.getpid()} jax={'jax' in sys.modules} {role}\\n")
+
+atexit.register(_mark)
+"""
+
+
+def _run_without_jax(case, env_extra, argv=("-e", "GVCF"), out="nojax.vcf",
+                     ranks=({},), timeout=300):
+    """The port's CLI (torch engine, GVCF by default) in fresh interpreters,
+    one per entry of ``ranks`` (its environment on top of ``env_extra``),
+    all started together. Each asserts that jax never entered its
+    sys.modules; so does every process they start (shards, -t workers),
+    through the marks a sitecustomize writes as each interpreter exits.
+    Returns (the first process's stats, the marks' lines)."""
     tmp, fasta, bam = case
+    output = str(tmp / out)
     code = (
         "import json, sys\n"
         "from rovaca_tpu_torch import cli\n"
         "stats = {}\n"
         f"rc = cli.main(['HaplotypeCaller', '-i', {bam!r}, '-r', {fasta!r},"
-        f" '-o', {str(tmp / 'nojax.vcf')!r}, '--pairhmm-engine', 'torch',"
-        " '-e', 'GVCF'], stats=stats)\n"
+        f" '-o', {output!r}, '--pairhmm-engine', 'torch',"
+        f" *{list(argv)!r}], stats=stats)\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('NOJAX_OK', json.dumps(stats))\n")
+    site = tmp / f"{out}.site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_MARK_SITECUSTOMIZE)
+    marks = tmp / f"{out}.marks"
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "ROVACA_BANDED_REALIGN")}
-    env["PYTHONPATH"] = REPO
-    env.update(env_extra)
-    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp), env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
-    assert "NOJAX_OK" in res.stdout
-    return json.loads(res.stdout.split("NOJAX_OK", 1)[1])
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{REPO}",
+               ROVACA_TEST_MARKS=str(marks), **env_extra)
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=str(tmp),
+                              env={**env, **rank_env}, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for rank_env in ranks]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, se[-3000:]
+        assert "NOJAX_OK" in so
+    lines = marks.read_text().splitlines()
+    assert lines and all(" jax=False " in ln for ln in lines), lines
+    return json.loads(outs[0][0].split("NOJAX_OK", 1)[1]), lines
 
 
 def test_cli_run_never_imports_jax(standard_case):
-    stats = _run_without_jax(standard_case, {})
+    stats, marks = _run_without_jax(standard_case, {})
     assert stats["sw_launches"] == 0
+    assert len(marks) == 1
 
 
 def test_banded_cli_run_never_imports_jax(error_case):
-    stats = _run_without_jax(error_case, {"ROVACA_BANDED_REALIGN": "1"})
+    stats, _ = _run_without_jax(error_case, {"ROVACA_BANDED_REALIGN": "1"})
     assert stats["sw_launches"] > 0
 
 
+@pytest.mark.parametrize("argv,role,n_role", [
+    (["--shards", "2"], "rovaca_tpu_torch/cli.py HaplotypeCaller", 2),
+    (["-t", "2"], " pool-worker", 2),
+], ids=["shards", "host_workers"])
+def test_parallel_cli_run_never_imports_jax(standard_case, argv, role,
+                                            n_role):
+    """--shards 2 and -t 2: neither the CLI nor the shard processes or
+    worker processes it starts import jax."""
+    _, marks = _run_without_jax(standard_case, {}, argv=argv,
+                                out=f"nojax_{argv[0].strip('-')}.vcf")
+    assert sum(role in ln for ln in marks) >= n_role, marks
+
+
+_REFUSED = {"ROVACA_AUTO_DISTRIBUTED": "torchrun's environment",
+            "JAX_COORDINATOR_ADDRESS": "needs JAX_NUM_PROCESSES"}
+
+
 @pytest.mark.parametrize("argv,env", [
-    (["--shards", "2"], {}),
-    (["-t", "2"], {}),
+    (["--shards", "1"], {"ROVACA_AUTO_DISTRIBUTED": "1"}),
+    (["-t", "1"], {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:1"}),
 ])
 def test_unported_paths_are_refused(standard_case, monkeypatch, capsys,
                                     argv, env):
+    """An incomplete multi-process environment is refused with exit code 2
+    before any rendezvous (ROVACA_AUTO_DISTRIBUTED reads torchrun's names;
+    rovaca_tpu's cloud-TPU auto-detection has no counterpart)."""
     tmp, fasta, bam = standard_case
+    msg = _REFUSED[next(iter(env))]
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
+              "JAX_NUM_PROCESSES", "JAX_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     rc = port_cli(["HaplotypeCaller", "-i", bam, "-r", fasta, "-o",
                    str(tmp / "refused.vcf"), "--pairhmm-engine", "torch",
                    *argv])
     assert rc == 2
-    assert "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "error: " in err and msg in err, err
+    assert not os.path.exists(tmp / "refused.vcf")
 
 
 def test_default_engine_needs_gpu(standard_case, monkeypatch):

@@ -21,8 +21,12 @@ from rovaca_tpu.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
                                     OverhangStrategy, _sw_align_python)
 from rovaca_tpu.ops.pairhmm import prep
 from rovaca_tpu_torch.ops.pairhmm import compact, dense, indexed
+from rovaca_tpu.pipeline.hc_engine import CallerConfig
 from rovaca_tpu_torch.ops.sw import banded
+from rovaca_tpu_torch.parallel.host_executor import HostExecutor
+from rovaca_tpu_torch.parallel.pipeline_shard import sharded_pipeline_step
 from rovaca_tpu_torch.pipeline.scheduler import PairHMMScheduler
+from rovaca_tpu_torch.utils import platform
 
 THR = np.float32(C.MIN_ACCEPTED_F32)
 
@@ -204,3 +208,72 @@ def test_banded_batch_on_card_matches_host_sw(cuda):
                                     OverhangStrategy.SOFTCLIP)
             assert str(r.result.cigar) == str(want.cigar)
             assert r.result.alignment_offset == want.alignment_offset
+
+
+@pytest.mark.gpu
+def test_scheduler_device_list_matches_one_device(cuda):
+    """Launches round-robin over every card named twice: lik and kept
+    array-equal to a one-device scheduler's."""
+    rng = np.random.default_rng(47)
+    jobs = [(k, *region(rng, n, h))
+            for k, (n, h) in enumerate([(40, 3), (150, 9), (7, 2), (260, 5),
+                                        (12, 17), (90, 4)])]
+    results = {}
+    for name, devices in (("list", platform.devices() * 2),
+                          ("one", [cuda])):
+        sched = PairHMMScheduler(engine="cuda", devices=devices)
+        sched.NR_MAX = sched.NH_MAX = 3                 # several launches
+        for key, reads, haps in jobs:
+            sched.submit(key, reads, haps)
+        before = indexed.LAUNCHES
+        results[name] = sched.run()
+        assert indexed.LAUNCHES - before == sched.launches > 2
+        assert sched.device_ms > 0
+    for key, _, _ in jobs:
+        lik_l, kept_l = results["list"][key]
+        lik_o, kept_o = results["one"][key]
+        np.testing.assert_array_equal(kept_l, kept_o)
+        np.testing.assert_array_equal(lik_l, lik_o)
+
+
+@pytest.mark.gpu
+def test_sharded_pipeline_step_on_cards_matches_plain(cuda):
+    rng = np.random.default_rng(48)
+    launches = []
+    for _ in range(4):
+        b = compact.build_pair_batch_compact(*region(rng, 150, 11),
+                                             len_buckets=(256,),
+                                             hap_len_buckets=(512,))
+        hidx = rng.integers(0, b.gh, 5).astype(np.int32)
+        ridx = rng.integers(0, b.gr, 5).astype(np.int32)
+        launches.append(b.arrays() + (hidx, ridx))
+    stacked = [torch.from_numpy(np.stack(parts)) for parts in zip(*launches)]
+    before = indexed.LAUNCHES
+    got = sharded_pipeline_step(platform.devices() * 2, *stacked)
+    torch.cuda.synchronize()
+    assert indexed.LAUNCHES == before + 4
+    assert got.device == platform.devices()[0]
+    want = sharded_pipeline_step([torch.device("cpu")], *stacked)
+    assert_forward_close(got.cpu().numpy(), want.numpy())
+
+
+# (torch imported, CUDA initialised) in the process that evaluates it
+_CUDA_STATE = ("(lambda t: (t is not None, t is not None and "
+               "t.cuda.is_initialized()))"
+               "(__import__('sys').modules.get('torch'))")
+
+
+@pytest.mark.gpu
+def test_host_worker_never_touches_the_card(cuda):
+    """-t 2's workers prepare regions on the host: with this process's CUDA
+    context live, a worker has imported no torch and initialised no CUDA."""
+    torch.ones(1, device=cuda)
+    assert torch.cuda.is_initialized()
+    executor = HostExecutor(2, CallerConfig(pairhmm_engine="cuda"),
+                            {"chr1": 1000})
+    try:
+        states = [executor._pool.submit(eval, _CUDA_STATE).result(timeout=120)
+                  for _ in range(4)]
+    finally:
+        executor.close()
+    assert states == [(False, False)] * 4
