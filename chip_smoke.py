@@ -26,12 +26,13 @@ exits non-zero:
    and offsets equal to the exact host SW's (the native SW for all, the
    python oracle for the first few); the fallback count, and the time of the
    backtrack band's copy to pinned host memory.
-5. main path: a 1 Mb / 30x diploid corpus (scripts/golden_e2e.generate,
-   seed 424242) through ``rovaca_tpu_torch.cli HaplotypeCaller`` with
-   ``--pairhmm-engine cuda``, then ``native`` on the same inputs. The cuda
-   run must launch K1, as often as its scheduler counted, and its VCF must
-   match the native run's on (CHROM, POS, REF, ALT, GT) with the other
-   fields within golden_e2e's tolerances.
+5. main path: a 1 Mb / 30x diploid corpus (the port's
+   tools.golden_e2e.generate, seed 424242) through ``rovaca_tpu_torch.cli
+   HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native`` on the
+   same inputs. The cuda run must launch K1, as often as its scheduler
+   counted, and its VCF must match the native run's on (CHROM, POS, REF,
+   ALT, GT) with the other fields within golden_e2e's tolerances. Each K1
+   launch's (G, Lr, Lh, real cells) and its bound are printed.
 6. realignment path: the same corpus with ROVACA_BANDED_REALIGN=1 and the
    cuda engine. K3 must launch as often as ``stats["sw_launches"]`` counts,
    at least once; its VCF must match the native run's; its fallbacks to the
@@ -46,7 +47,7 @@ exits non-zero:
    versions, held to K1's checks, and the global best within rtol 2e-5;
    ``pipeline_dryrun(4)`` through the card.
 9. ``--shards 2`` on the corpus, cuda engine: each shard launches K1 and the
-   merged VCF passes scripts/race_e2e.depth_masked_diff against phase 5's
+   merged VCF passes tools.race_e2e.depth_masked_diff against phase 5's
    cuda VCF (the bar of tests/test_shard_confinement.py).
 10. ``-t 2`` on the corpus, cuda engine: K1 launched as often as the
    scheduler counted, the VCF byte-identical to phase 5's.
@@ -57,8 +58,12 @@ exits non-zero:
 Every kernel's counter is set to 0 just before each of phases 5-8 and 10
 and read just after; phases 9 and 11 run in child processes, whose
 schedulers' launch counts their summary lines print. The line before the
-last is the kernels' JSON summary; the last line is ``{"ok": true, "device":
-{...}}``. Nothing of jax is imported.
+last is the kernels' JSON summary: each kernel's launches on its path, its
+time and its plain version's at the timed shape, and its bound there, the
+larger of its bytes over 3.35 TB/s and its operations over the peak rate of
+their type (PEAK_*); no single PyTorch call computes any of the three
+functions, so ``library_ms`` is null. The last line is ``{"ok": true,
+"device": {...}}``. Nothing of jax or rovaca_tpu is imported.
 """
 
 import concurrent.futures
@@ -94,6 +99,20 @@ CORPUS = dict(genome_len=1_000_000, coverage=30, seed=424242)
 KERNELS = ("pairhmm_indexed", "pairhmm_dense", "sw_banded")
 MIN_REGIONS = 200
 SHARDS = 4             # shards of the sharded steps and the dryrun
+# The H100 SXM's peaks (NVIDIA's data sheet at 700 W): HBM 3.35 TB/s, FP32
+# outside the tensor cores 67 TFLOP/s; int32 64 ops a clock an SM (CUDA
+# C++ Programming Guide, arithmetic throughput for compute capability 9.0)
+# x 132 SMs x 1.98 GHz
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+PEAK_I32 = 64 * 132 * 1.98e9
+# float ops a PairHMM cell (M: 2 mul, 1 add, 1 FMA; I and D: 1 mul, 1 FMA
+# each; an FMA counts 2) and int32 ops a banded-SW band cell (diagonal:
+# compare, select, add; vertical: 2 adds, max; in-row gap scan: add, max,
+# compare, select; the cell: 2 max and the cutoff max; backtrack code:
+# compare, 2 selects)
+PAIRHMM_OPS = 11
+SW_OPS = 16
 
 
 class PhaseError(Exception):
@@ -103,6 +122,13 @@ class PhaseError(Exception):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
+
+
+def check_imports():
+    """Neither jax nor rovaca_tpu (nor a module of it) was imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "rovaca_tpu"))
+    check(not bad, f"imported {bad[:5]}")
 
 
 def phase_card():
@@ -186,6 +212,27 @@ def make_batch(rng, Lr, Lh, G):
     return arrays, cells
 
 
+def bound(n_bytes, n_ops, peak_ops):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / peak_ops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def pairhmm_bound(tensors, cells):
+    """bound() of a PairHMM launch: every input read once, the output
+    written once, PAIRHMM_OPS float ops a real cell."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    return bound(n_bytes, PAIRHMM_OPS * cells, PEAK_F32)
+
+
+def k1_cells(rlen, hlen, hidx, ridx, Lr, Lh):
+    """Real cells of a K1 launch: sum over its pairs of rlen x hlen."""
+    rl = rlen.reshape(-1, 128)[ridx.long()].clamp(0, Lr).long()
+    hl = hlen.reshape(-1, 8)[hidx.long()].clamp(0, Lh).long()
+    return int((hl[:, :, None] * rl[:, None, :]).sum())
+
+
 def time_ms(fn, runs=RUNS):
     """Median of ``runs`` CUDA-event timings (after one warm-up call when
     runs > 1); returns (median ms, output of the first call)."""
@@ -210,7 +257,7 @@ def compare(got, want):
     """(max rel err on kept pairs, max abs log10 err on kept pairs,
     rescue sets equal, padding exact) of two (G, 8, 128) raw outputs."""
     import numpy as np
-    from rovaca_tpu import constants as C
+    from rovaca_tpu_torch import constants as C
     thr = np.float32(C.MIN_ACCEPTED_F32)
     pad = want == 0
     kept = want >= thr
@@ -242,7 +289,13 @@ def phase_kernels(shapes=SHAPES):
                                  p_runs, cells)
         summary["max_abs_err"] = max(summary["max_abs_err"], log_err)
         if (Lr, Lh, G) == TIMED_SHAPE:
-            summary.update(ms=k_ms, plain_ms=p_ms)
+            bound_ms, bound_by = pairhmm_bound((*t, k_out), cells)
+            summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            print(f"[K1] timed shape {TIMED_SHAPE}: bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {PAIRHMM_OPS} float ops x {cells} cells at "
+                  f"{PEAK_F32:.3g}/s) share={bound_ms / k_ms:.3f}",
+                  flush=True)
     return summary
 
 
@@ -299,7 +352,13 @@ def phase_dense(shapes=DENSE_SHAPES):
             p_ms, RUNS, cells)
         summary["max_abs_err"] = max(summary["max_abs_err"], log_err)
         if (Lr, Lh) == DENSE_TIMED:
-            summary.update(ms=k_ms, plain_ms=p_ms)
+            bound_ms, bound_by = pairhmm_bound((*t, k_out), cells)
+            summary.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+            print(f"[K2] timed shape {DENSE_TIMED}: bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {PAIRHMM_OPS} float ops x {cells} cells at "
+                  f"{PEAK_F32:.3g}/s) share={bound_ms / k_ms:.3f}",
+                  flush=True)
     return summary
 
 
@@ -334,11 +393,12 @@ def phase_sw(shapes=SW_SHAPES):
     """K3 against its plain version, and its traceback against host SW."""
     import numpy as np
     import torch
-    from rovaca_tpu.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
-                                        OverhangStrategy, _sw_align_python)
-    from rovaca_tpu.native import sw_native
-    from rovaca_tpu.reads.cigar import Cigar
+    from rovaca_tpu_torch.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
+                                              OverhangStrategy,
+                                              _sw_align_python)
+    from rovaca_tpu_torch.native import sw_native
     from rovaca_tpu_torch.ops.sw import banded
+    from rovaca_tpu_torch.reads.cigar import Cigar
     from rovaca_tpu_torch.utils import platform
     dev = platform.device()
     P = READ_TO_HAPLOTYPE_PARAMS
@@ -396,7 +456,17 @@ def phase_sw(shapes=SW_SHAPES):
         check(fallbacks >= forced, f"{forced} off-band pairs but "
               f"{fallbacks} fallbacks at {(Ln, B)}")
         if (Ln, B) == SW_TIMED:
-            summary.update(ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms)
+            # rows 1..n of every alignment, 128 band cells a row
+            cells = int(t[2][:, 0].clamp(0, Ln).sum()) * 128
+            n_bytes = sum(x.numel() * x.element_size()
+                          for x in (*t, *k_out))
+            bound_ms, bound_by = bound(n_bytes, SW_OPS * cells, PEAK_I32)
+            summary.update(ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[K3] timed shape {SW_TIMED}: bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; {n_bytes} bytes at {PEAK_BYTES:.3g}/s, "
+                  f"{SW_OPS} int32 ops x {cells} cells at {PEAK_I32:.3g}/s) "
+                  f"share={bound_ms / k_ms:.3f}", flush=True)
     return summary
 
 
@@ -440,7 +510,8 @@ def phase_main_path(workdir):
     """The default VCF run on the cuda engine (K1), then the native engine's
     on the same inputs, which the later paths are held to as well."""
     import torch
-    import golden_e2e
+    from rovaca_tpu_torch.pipeline import scheduler
+    from rovaca_tpu_torch.tools import golden_e2e
 
     # warm-up on a small corpus: the host's native libraries build at
     # first use, and no timed run should pay for that
@@ -457,12 +528,24 @@ def phase_main_path(workdir):
     bam = os.path.join(workdir, "sample.bam")
     ref = os.path.join(workdir, "ref.fa")
     runs = {}
+    # the K1 launches' inputs, kept to print their shapes after the run
+    launched = []
+    kernel = scheduler.pairhmm_indexed_compact
+
+    def recording(*t):
+        launched.append(t)
+        return kernel(*t)
+
     for engine, out in (("cuda", "ours.vcf"), ("native", "ref.vcf")):
         stats = {}
         torch.cuda.synchronize()
         reset_counts()
-        rc = _hc(bam, ref, os.path.join(workdir, out), engine, stats)
-        torch.cuda.synchronize()
+        scheduler.pairhmm_indexed_compact = recording
+        try:
+            rc = _hc(bam, ref, os.path.join(workdir, out), engine, stats)
+            torch.cuda.synchronize()
+        finally:
+            scheduler.pairhmm_indexed_compact = kernel
         counts = read_counts()
         check(rc == 0, f"{engine} run exited {rc}")
         runs[engine] = (stats, counts)
@@ -474,6 +557,20 @@ def phase_main_path(workdir):
     check(runs["native"][1]["pairhmm_indexed"] == 0, "native run launched K1")
     check(cu["regions"] > 0 and cu["calls"] > 0, "no regions or records")
     check(cu["sw_launches"] == 0, "the default path ran the banded SW")
+    check(len(launched) == launches, f"{len(launched)} launches recorded")
+    total = 0.0
+    for k, t in enumerate(launched):
+        q, rlen, hcode, hlen, hidx, ridx = t[0], t[4], t[5], t[6], t[7], t[8]
+        G, Lr, Lh = hidx.shape[0], q.shape[1], hcode.shape[1]
+        cells = k1_cells(rlen, hlen, hidx, ridx, Lr, Lh)
+        out = torch.empty((G, 8, 128), dtype=torch.float32)
+        bound_ms, bound_by = pairhmm_bound((*t, out), cells)
+        total += bound_ms
+        print(f"[e2e] K1 launch {k}: G={G} Lr={Lr} Lh={Lh} cells={cells} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+    print(f"[e2e] K1 launches' bound summed: {total:.4f} ms against "
+          f"{cu['device_ms']:.4f} ms of card time (uploads and copies "
+          f"included)", flush=True)
     a = _records(os.path.join(workdir, "ours.vcf"))
     b = _records(os.path.join(workdir, "ref.vcf"))
     identical = sum(x == y for x, y in zip(a, b))
@@ -481,7 +578,7 @@ def phase_main_path(workdir):
           f"{identical}", flush=True)
     rc = golden_e2e.diff(workdir)   # ours = cuda, ref = native
     check(rc == 0, "cuda VCF diverges from the native engine's")
-    check("jax" not in sys.modules, "jax was imported")
+    check_imports()
     return {"launches": launches, "wall_s": cu["wall_s"]}
 
 
@@ -489,7 +586,7 @@ def phase_realign_path(workdir, default_wall_s):
     """The same corpus with ROVACA_BANDED_REALIGN=1 on the cuda engine: the
     realignment runs K3 on the card."""
     import torch
-    import golden_e2e
+    from rovaca_tpu_torch.tools import golden_e2e
     out_dir = os.path.join(workdir, "banded")
     os.makedirs(out_dir)
     shutil.copy(os.path.join(workdir, "ref.vcf"), out_dir)   # native run's
@@ -520,7 +617,7 @@ def phase_realign_path(workdir, default_wall_s):
     rc = golden_e2e.diff(out_dir)   # ours = banded cuda, ref = native
     check(rc == 0, "the banded realignment VCF diverges from the native "
           "engine's")
-    check("jax" not in sys.modules, "jax was imported")
+    check_imports()
     return {"launches": launches, "fallbacks": stats["sw_fallbacks"],
             "wall_s": stats["wall_s"]}
 
@@ -530,9 +627,9 @@ def region_tasks(workdir, n_min=MIN_REGIONS):
     window as the caller's _call_contig does: [(region, reads)], ref, contig,
     contig lengths."""
     import numpy as np
-    from rovaca_tpu import constants as C
-    from rovaca_tpu.io.bamcols import BamColumns
-    from rovaca_tpu.pipeline import activity
+    from rovaca_tpu_torch import constants as C
+    from rovaca_tpu_torch.io.bamcols import BamColumns
+    from rovaca_tpu_torch.pipeline import activity
     from rovaca_tpu_torch.pipeline.caller import (WINDOW_MARGIN, WINDOW_SIZE,
                                                   HaplotypeCaller, HCArgs)
     hc = HaplotypeCaller(HCArgs(
@@ -590,8 +687,8 @@ def phase_region_path(workdir):
     """RegionCaller.call_region (compute_likelihoods -> pairhmm_raw -> K2)
     on the cuda engine against the native engine."""
     import torch
-    import golden_e2e
     from rovaca_tpu_torch.pipeline.hc_engine import CallerConfig, RegionCaller
+    from rovaca_tpu_torch.tools import golden_e2e
     tasks, ref, contig, lengths = region_tasks(workdir)
     check(len(tasks) >= MIN_REGIONS, f"only {len(tasks)} active regions")
     results = {}
@@ -745,7 +842,7 @@ def phase_device_list():
           f"(plain {best:.6e})", flush=True)
     check(abs(float(k2_best) - best) <= RTOL * best,
           f"sharded K2 global best {float(k2_best)} vs plain {best}")
-    check("jax" not in sys.modules, "jax was imported")
+    check_imports()
     return {"pairhmm_indexed": counts["pairhmm_indexed"],
             "pairhmm_dense": counts["pairhmm_dense"], "sw_banded":
             counts["sw_banded"], "wall_s": wall}
@@ -779,8 +876,8 @@ def _cli_cmd(workdir, out, *extra):
 
 def _masked_diff(workdir, path, tag):
     """Hold a split run's VCF to phase 5's unsharded cuda VCF by
-    tests/test_shard_confinement.py's bar (scripts/race_e2e)."""
-    import race_e2e
+    tests/test_shard_confinement.py's bar (tools.race_e2e)."""
+    from rovaca_tpu_torch.tools import race_e2e
     ok, detail = race_e2e.depth_masked_diff(
         os.path.join(workdir, "ours.vcf"), path,
         bam_path=os.path.join(workdir, "sample.bam"))
@@ -832,7 +929,7 @@ def phase_host_workers(workdir):
             open(os.path.join(workdir, "ours.vcf"), "rb") as b:
         check(a.read() == b.read(), "-t 2 VCF differs from the -t 1 VCF")
     print("[workers] VCF byte-identical to the -t 1 cuda run", flush=True)
-    check("jax" not in sys.modules, "jax was imported")
+    check_imports()
     return {"wall_s": stats["wall_s"], "launches": stats["launches"]}
 
 
@@ -873,6 +970,9 @@ def phase_ranks(workdir):
     _masked_diff(workdir, out, "ranks")
     check(not [f for f in os.listdir(workdir) if ".rank" in f],
           "rank shard files left behind")
+    check_imports()
+    print("[ranks] neither jax nor rovaca_tpu was imported by this process",
+          flush=True)
     return {"wall_s": [e[2] for e in ends]}
 
 
@@ -897,7 +997,6 @@ def main():
         print("FAIL: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
     try:
         timed("card", phase_card)
         timed("build", phase_build)
@@ -925,6 +1024,8 @@ def main():
          "max_abs_err": k1["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None,
          "shape": dict(zip(("Lr", "Lh", "G"), TIMED_SHAPE))},
         {"name": "pairhmm_dense", "route": "cuda",
          "source": "rovaca_tpu_torch/csrc/pairhmm_dense.cu",
@@ -934,6 +1035,8 @@ def main():
          "max_abs_err": k2["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None,
          "shape": {"Lr": DENSE_TIMED[0], "Lh": DENSE_TIMED[1],
                    "GH": DENSE_TILES, "GR": DENSE_TILES}},
         {"name": "sw_banded", "route": "cuda",
@@ -944,6 +1047,8 @@ def main():
          "max_abs_err": k3["max_abs_err"],
          "err_of": "bt, colm, lastrow and edge (integers, bit-equal)",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None,
          "bt_copy_ms": k3["copy_ms"], "fallbacks": realign["fallbacks"],
          "shape": {"Ln": SW_TIMED[0], "B": SW_TIMED[1]}}]}))
     print(json.dumps({"ok": True, "device": {

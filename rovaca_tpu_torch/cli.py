@@ -80,8 +80,7 @@ def run_haplotype_caller(argv, stats=None):
                         "processes with coordinate-ordered output merge")
     a = p.parse_args(argv)
 
-    from rovaca_tpu import constants as C
-
+    from rovaca_tpu_torch import constants as C
     from rovaca_tpu_torch.pipeline.caller import HaplotypeCaller, HCArgs
 
     # file validation (rovaca_tool_args valid_check counterpart)
@@ -122,7 +121,7 @@ def run_haplotype_caller(argv, stats=None):
             print("error: use either -b/--bed or multiple -L, not both",
                   file=sys.stderr)
             return 2
-        from rovaca_tpu.pipeline.caller import parse_span
+        from rovaca_tpu_torch.pipeline.caller import parse_span
         target_intervals = []
         for s in spans:
             contig, beg, end = parse_span(s)
@@ -185,7 +184,7 @@ def run_build_bam_index(argv, stats=None):
     if not os.path.exists(a.input):
         print(f"error: input file does not exist: {a.input}", file=sys.stderr)
         return 2
-    from rovaca_tpu.io.bai import build_index
+    from rovaca_tpu_torch.io.bai import build_index
     t0 = time.time()
     try:
         out = build_index(a.input, a.output)
@@ -210,7 +209,7 @@ def run_index_feature_file(argv, stats=None):
     if not os.path.exists(a.input):
         print(f"error: input file does not exist: {a.input}", file=sys.stderr)
         return 2
-    from rovaca_tpu.io.tabix import build_index
+    from rovaca_tpu_torch.io.tabix import build_index
     t0 = time.time()
     try:
         out = build_index(a.input, a.output)

@@ -10,8 +10,7 @@ Counterparts of __graft_entry__.py's ``entry`` and ``dryrun_multichip``
 import numpy as np
 import torch
 
-from rovaca_tpu.ops.pairhmm import prep
-
+from .ops.pairhmm import prep
 from .ops.pairhmm.dense import pairhmm_dense
 from .parallel.pipeline_shard import pipeline_dryrun
 from .utils import platform

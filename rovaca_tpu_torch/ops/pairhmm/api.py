@@ -1,9 +1,10 @@
 """End-to-end PairHMM scoring: float32 forward, float64 rescue, filtering.
 
 Counterpart of rovaca_tpu/ops/pairhmm/api.py. The best-4.5 cap and the
-poorly-modelled-read filter are imported unchanged. ``log10_with_rescue`` is
-the port's own: rovaca_tpu's version falls back to a jax float64 forward
-when the native library is missing, and this package never imports jax.
+poorly-modelled-read filter are carried over unchanged.
+``log10_with_rescue`` is the port's own: rovaca_tpu's version falls back to a
+jax float64 forward when the native library is missing, and this package
+never imports jax.
 ``pairhmm_raw`` scores a dense ``prep.PairBatch`` on the dense kernel (K2),
 its plain version or the native engine; ``compute_likelihoods``, the
 library entry, runs it and then ``finish_scores``.
@@ -12,14 +13,10 @@ library entry, runs it and then ``finish_scores``.
 import numpy as np
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.native import pairhmm_native
-from rovaca_tpu.ops.pairhmm import prep
-from rovaca_tpu.ops.pairhmm.api import normalize_likelihoods, \
-    poorly_modelled_mask
-
+from ... import constants as C
+from ...native import pairhmm_native
 from ...utils import platform
-from . import compact
+from . import compact, prep
 from .dense import pairhmm_dense
 from .indexed import pairhmm_indexed_compact_torch
 
@@ -128,6 +125,25 @@ def log10_with_rescue(raw_matrix, reads, haps, pcr_model="CONSERVATIVE",
     for (h_idx, r_idx), rd in zip(rescued, raws):
         out[h_idx, r_idx] = np.log10(rd) - C.LOG10_INITIAL_CONSTANT_F64
     return out
+
+
+def normalize_likelihoods(lik_by_read):
+    """Cap each read's likelihoods at best - 4.5 in place
+    (pairhmm_internal.cpp:53-63)."""
+    best = np.max(lik_by_read, axis=1, keepdims=True)
+    cap = best + C.MAXIMUM_BEST_ALT_LIKELIHOOD_DIFFERENCE
+    return np.maximum(lik_by_read, cap)
+
+
+def poorly_modelled_mask(read_lengths, lik_by_read):
+    """True where a read is poorly modelled and must be dropped
+    (pairhmm_internal.cpp:161-182)."""
+    best = np.max(lik_by_read, axis=1)
+    thresh = np.minimum(
+        C.MAXIMUM_EXPECTED_ERROR_PER_READ,
+        np.ceil(np.asarray(read_lengths) * C.EXPECTED_ERROR_RATE_PER_BASE),
+    ) * C.LOG10_QUALITY_PER_BASE
+    return best < thresh
 
 
 def finish_scores(raw_matrix, reads, haps, pcr_model, min_quality_threshold):

@@ -1,12 +1,12 @@
 """Compact PairHMM batches: small integers on the wire, channels on device.
 
 Counterpart of rovaca_tpu/ops/pairhmm/compact.py, which imports jax at module
-top, so its pure-numpy batch builder cannot be imported from here. The
-builder is carried over unchanged and still calls rovaca_tpu's ``prep`` for
-the quality caps, the PCR/STR model and ``BASE_CODE``. The (128,)
-probability tables come from ``rovaca_tpu.ops.gatk_math``, the same numpy
-tables the JAX package feeds its kernel; together with the compact batches
-they are the state both packages are fed from.
+top. The pure-numpy batch builder is carried over unchanged and calls this
+package's ``prep`` (the copy of rovaca_tpu's) for the quality caps, the
+PCR/STR model and ``BASE_CODE``. The (128,) probability tables come from
+``ops.gatk_math``, the same numpy tables the JAX package feeds its kernel;
+together with the compact batches they are the state both packages are fed
+from.
 """
 
 import dataclasses
@@ -15,9 +15,9 @@ import functools
 import numpy as np
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.ops import gatk_math
-from rovaca_tpu.ops.pairhmm import prep
+from ... import constants as C
+from .. import gatk_math
+from . import prep
 
 
 @functools.lru_cache(maxsize=None)

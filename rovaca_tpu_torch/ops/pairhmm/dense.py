@@ -16,10 +16,9 @@ import ctypes
 
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.ops.pairhmm import prep
-
+from ... import constants as C
 from .. import build
+from . import prep
 from .indexed import _CHUNK_ELEMS, _forward
 
 LAUNCHES = 0    # kernel launches made by pairhmm_dense

@@ -16,10 +16,9 @@ import functools
 
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.ops.pairhmm import prep
-
+from ... import constants as C
 from .. import build
+from . import prep
 from .compact import broadcast_haps, materialize_channels, tables
 
 LAUNCHES = 0    # kernel launches made by pairhmm_indexed_compact

@@ -31,11 +31,9 @@ import ctypes
 import numpy as np
 import torch
 
-from rovaca_tpu.assembly.sw import (LOW_INIT_VALUE, MATRIX_MIN_CUTOFF,
-                                    OverhangStrategy, SWResult,
-                                    _sw_align_python)
-from rovaca_tpu.reads.cigar import Cigar, CigarOp
-
+from ...assembly.sw import (LOW_INIT_VALUE, MATRIX_MIN_CUTOFF,
+                            OverhangStrategy, SWResult, _sw_align_python)
+from ...reads.cigar import Cigar, CigarOp
 from .. import build
 
 W = 128                 # band width

@@ -98,7 +98,7 @@ def run_distributed(args, run_single_fn):
     rank, world = dist.get_rank(), dist.get_world_size()
     span = None
     if args.target_span:
-        from rovaca_tpu.pipeline.caller import parse_span
+        from ..pipeline.caller import parse_span
         span = parse_span(args.target_span)
 
     def spans_of(r):

@@ -20,8 +20,7 @@ over unchanged; the packing builds its batches with the port's
 import numpy as np
 import torch
 
-from rovaca_tpu import constants as C
-
+from .. import constants as C
 from ..ops.pairhmm.api import finish_scores
 from ..ops.pairhmm.indexed import pairhmm_indexed_compact
 from .sharding import data_devices, per_shard, shard_intervals
@@ -61,9 +60,9 @@ def _simulate(genome_len=16000, coverage=24, read_len=50, seed=20260819):
     """Tiny in-memory diploid case with SNPs AND indels; reads sampled
     from the alt haplotype get real cigars by SW alignment to the
     reference (the same GATK-exact SW the production pipeline uses)."""
-    from rovaca_tpu.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
-                                        OverhangStrategy, sw_align)
-    from rovaca_tpu.reads.record import ReadRecord
+    from ..assembly.sw import (READ_TO_HAPLOTYPE_PARAMS, OverhangStrategy,
+                               sw_align)
+    from ..reads.record import ReadRecord
 
     rng = np.random.default_rng(seed)
     contig = "chr20"
@@ -126,12 +125,12 @@ def _simulate(genome_len=16000, coverage=24, read_len=50, seed=20260819):
                 quals=rng.integers(30, 40, size=read_len),
                 contig=contig))
     reads.sort(key=lambda r: r.pos)
-    from rovaca_tpu.utils.refwindow import RefWindow
+    from ..utils.refwindow import RefWindow
     return contig, RefWindow(ref.encode(), 0), reads, truth
 
 
 def _regions_for_span(reads, ref, contig, lo, hi):
-    from rovaca_tpu.pipeline import activity
+    from ..pipeline import activity
     sel = [r for r in reads if r.pos < hi and r.end > lo]
     if not sel:
         return [], sel

@@ -20,8 +20,7 @@ import os
 import subprocess
 import sys
 
-from rovaca_tpu.io.fasta import FastaFile
-
+from ..io.fasta import FastaFile
 from .sharding import local_device_count, shard_intervals
 
 
@@ -70,7 +69,7 @@ def run_sharded(cli_args, n_shards, output_path):
         for k, a in enumerate(cli_args):
             if a == flag and k + 1 < len(cli_args):
                 bam = cli_args[k + 1]
-                from rovaca_tpu.io.bai import build_index, find_index
+                from ..io.bai import build_index, find_index
                 if find_index(bam) is None:
                     try:
                         build_index(bam)
@@ -125,7 +124,7 @@ def _open_vcf_lines(path):
     if magic == b"\x1f\x8b":
         import io
 
-        from rovaca_tpu.io import bgzf
+        from ..io import bgzf
         fh = io.TextIOWrapper(bgzf.open_read(path))
     else:
         fh = open(path)
@@ -143,8 +142,8 @@ def merge_shard_vcfs(shard_files, output_path, compression_level=6):
     if output_path.endswith(".gz"):
         import io
 
-        from rovaca_tpu.io import bgzf
-        from rovaca_tpu.io.vcf import _BgzfRaw
+        from ..io import bgzf
+        from ..io.vcf import _BgzfRaw
         out = io.TextIOWrapper(_BgzfRaw(bgzf.Writer(output_path,
                                                     compression_level)))
     else:
@@ -166,6 +165,6 @@ def merge_shard_vcfs(shard_files, output_path, compression_level=6):
     finally:
         out.close()
     if output_path.endswith(".gz"):
-        from rovaca_tpu.io import tabix
+        from ..io import tabix
         tabix.build_index(output_path)
     return counts

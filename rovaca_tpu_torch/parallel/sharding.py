@@ -13,8 +13,7 @@ the shards' results, and ``all_gather`` a shard-ordered ``torch.stack`` on
 
 import torch
 
-from rovaca_tpu import constants as C
-
+from .. import constants as C
 from ..ops.pairhmm.dense import pairhmm_dense
 from ..utils import platform
 

@@ -18,20 +18,28 @@ compile prewarm. The kernel takes any G, NR and NH, so launches are not
 padded.
 """
 
+import dataclasses
 import threading
 
 import numpy as np
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.native import pairhmm_native
-from rovaca_tpu.ops.pairhmm import prep
-from rovaca_tpu.pipeline.scheduler import RegionJob
-
-from ..ops.pairhmm import compact
+from .. import constants as C
+from ..native import pairhmm_native
+from ..ops.pairhmm import compact, prep
 from ..ops.pairhmm.api import all_pairs, engine_devices, finish_scores, \
     resolve_engine
 from ..ops.pairhmm.indexed import pairhmm_indexed_compact
+
+
+@dataclasses.dataclass
+class RegionJob:
+    key: object
+    reads: list
+    haps: list             # bytes
+    pcr_model: str
+    batch: object = None   # PairBatch
+    result: object = None  # (lik[h][r_kept], kept_indices)
 
 
 class PairHMMScheduler:

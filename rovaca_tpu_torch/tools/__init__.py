@@ -1,0 +1,3 @@
+"""Corpus and diff helpers of the port (counterparts of scripts/ and
+tests/simdata.py): ``golden_e2e`` (generate, diff), ``simdata`` (what
+generate calls) and ``race_e2e`` (depth_masked_diff)."""

@@ -54,6 +54,6 @@ def test_pairhmm_kernels_share_one_sweep():
         with open(os.path.join(build.CSRC, f"{name}.cu")) as f:
             text = f.read()
         assert '#include "pairhmm_forward.cuh"' in text
-        assert "rovaca::pair_forward(" in text
+        assert "rovaca::pair_forward<RMAX>(" in text
         assert not re.search(r"__shfl_up_sync", text)
     assert os.path.exists(os.path.join(build.CSRC, "sw_banded.cu"))

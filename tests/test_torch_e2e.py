@@ -7,8 +7,9 @@ on the CPU) and ``rovaca_tpu.cli --pairhmm-engine xla``. (CHROM, POS, REF,
 ALT, GT) must be identical and the other fields within
 scripts/golden_e2e.py's QUAL_TOL, FLOAT_TOL and PL_TOL; GVCF band rows must
 be identical. Runs of the port's CLI in fresh interpreters (plain, banded,
-``--shards 2``, ``-t 2``) show that neither they nor any process they start
-imports jax; an incomplete multi-process environment is refused.
+``--shards 2``, ``-t 2``; ranks in test_torch_distributed.py) show that
+neither they nor any process they start imports jax or any module of
+rovaca_tpu; an incomplete multi-process environment is refused.
 """
 
 import json
@@ -88,8 +89,9 @@ def test_banded_realign_matches_reference(error_case, monkeypatch, gvcf):
 
 # Installed on PYTHONPATH by _run_without_jax: every interpreter started
 # with it (the CLI, its shard processes, -t workers, ranks) appends
-# "<pid> jax=<bool> <argv, or pool-worker>" to $ROVACA_TEST_MARKS as it
-# exits.
+# "<pid> jax=<bool> rovaca_tpu=<bool> <argv, or pool-worker>" to
+# $ROVACA_TEST_MARKS as it exits; rovaca_tpu is True when rovaca_tpu or any
+# rovaca_tpu.* module is in sys.modules.
 _MARK_SITECUSTOMIZE = """\
 import atexit, os, sys
 
@@ -97,8 +99,11 @@ def _mark():
     mp = sys.modules.get("multiprocessing")
     child = mp is not None and mp.parent_process() is not None
     role = "pool-worker" if child else " ".join(sys.argv)[:300]
+    ref = any(m == "rovaca_tpu" or m.startswith("rovaca_tpu.")
+              for m in sys.modules)
     with open(os.environ["ROVACA_TEST_MARKS"], "a") as f:
-        f.write(f"{os.getpid()} jax={'jax' in sys.modules} {role}\\n")
+        f.write(f"{os.getpid()} jax={'jax' in sys.modules} "
+                f"rovaca_tpu={ref} {role}\\n")
 
 atexit.register(_mark)
 """
@@ -108,10 +113,11 @@ def _run_without_jax(case, env_extra, argv=("-e", "GVCF"), out="nojax.vcf",
                      ranks=({},), timeout=300):
     """The port's CLI (torch engine, GVCF by default) in fresh interpreters,
     one per entry of ``ranks`` (its environment on top of ``env_extra``),
-    all started together. Each asserts that jax never entered its
-    sys.modules; so does every process they start (shards, -t workers),
-    through the marks a sitecustomize writes as each interpreter exits.
-    Returns (the first process's stats, the marks' lines)."""
+    all started together. Each asserts that neither jax nor a module of
+    rovaca_tpu entered its sys.modules; so does every process they start
+    (shards, -t workers), through the marks a sitecustomize writes as each
+    interpreter exits. Returns (the first process's stats, the marks'
+    lines)."""
     tmp, fasta, bam = case
     output = str(tmp / out)
     code = (
@@ -123,6 +129,8 @@ def _run_without_jax(case, env_extra, argv=("-e", "GVCF"), out="nojax.vcf",
         f" *{list(argv)!r}], stats=stats)\n"
         "assert rc == 0, rc\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not [m for m in sys.modules if m == 'rovaca_tpu'"
+        " or m.startswith('rovaca_tpu.')], 'rovaca_tpu was imported'\n"
         "print('NOJAX_OK', json.dumps(stats))\n")
     site = tmp / f"{out}.site"
     site.mkdir()
@@ -145,7 +153,8 @@ def _run_without_jax(case, env_extra, argv=("-e", "GVCF"), out="nojax.vcf",
         assert p.returncode == 0, se[-3000:]
         assert "NOJAX_OK" in so
     lines = marks.read_text().splitlines()
-    assert lines and all(" jax=False " in ln for ln in lines), lines
+    assert lines and all(" jax=False rovaca_tpu=False " in ln
+                         for ln in lines), lines
     return json.loads(outs[0][0].split("NOJAX_OK", 1)[1]), lines
 
 

@@ -1,7 +1,7 @@
 """CUDA kernel tests of rovaca_tpu_torch; they skip without a GPU.
 
-This file imports neither jax nor the test conftest, so it also runs on a
-GPU host that has no jax:
+This file imports neither jax, nor anything of rovaca_tpu, nor the test
+conftest, so it also runs on a GPU host that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
@@ -16,15 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from rovaca_tpu import constants as C
-from rovaca_tpu.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
-                                    OverhangStrategy, _sw_align_python)
-from rovaca_tpu.ops.pairhmm import prep
-from rovaca_tpu_torch.ops.pairhmm import compact, dense, indexed
-from rovaca_tpu.pipeline.hc_engine import CallerConfig
+from rovaca_tpu_torch import constants as C
+from rovaca_tpu_torch.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
+                                          OverhangStrategy, _sw_align_python)
+from rovaca_tpu_torch.ops.pairhmm import compact, dense, indexed, prep
 from rovaca_tpu_torch.ops.sw import banded
 from rovaca_tpu_torch.parallel.host_executor import HostExecutor
 from rovaca_tpu_torch.parallel.pipeline_shard import sharded_pipeline_step
+from rovaca_tpu_torch.pipeline.hc_engine import CallerConfig
 from rovaca_tpu_torch.pipeline.scheduler import PairHMMScheduler
 from rovaca_tpu_torch.utils import platform
 
@@ -97,6 +96,60 @@ def test_kernel_matches_plain(cuda):
             assert np.all(got[g, :, 200 - 128:] == 0)
         if h == 1:                                 # padding haps 13..15
             assert np.all(got[g, 13 - 8:] == 0)
+
+
+# read lengths at the sweep's boundaries: one lane, a full and a ragged
+# first lane, 4 rows a lane, and one past the strip of a 128-row bucket
+BOUNDARY_RL = (1, 31, 32, 33, 4 * 32 - 1, 4 * 32 + 1)
+
+
+def boundary_batch(rng, Lr, Lh, G):
+    """Compact stacks of random reads whose lengths cycle through
+    BOUNDARY_RL (cut to Lr) and haps of length 1 or Lh, every pair of the G
+    drawn at random."""
+    NR, NH = 4, 4
+    codes = np.array([1, 2, 4, 8], np.int8)
+    rlen = np.array([min(BOUNDARY_RL[k % len(BOUNDARY_RL)], Lr)
+                     for k in range(NR * 128)], np.int32).reshape(NR, 1, 128)
+    valid = np.arange(Lr)[None, :, None] < rlen
+    rbase = np.where(valid, codes[rng.integers(0, 4, (NR, Lr, 128))],
+                     0).astype(np.int8)
+    q = np.where(valid, rng.integers(6, 41, rbase.shape), 0).astype(np.uint8)
+    gi = np.where(valid, rng.integers(20, 46, rbase.shape), 0).astype(
+        np.uint8)
+    gc = np.where(valid, 10, 0).astype(np.uint8)
+    hlen = np.where(np.arange(8)[None, :, None] % 2, Lh, 1).repeat(
+        NH, 0).astype(np.int32)
+    hcode = codes[rng.integers(0, 4, (NH, Lh, 8))]
+    hcode[np.arange(Lh)[None, :, None] >= hlen[:, None, :, 0]] = 0
+    hidx = rng.integers(0, NH, G).astype(np.int32)
+    ridx = rng.integers(0, NR, G).astype(np.int32)
+    return (q, gi, gc, rbase, rlen, hcode, hlen, hidx, ridx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Lr,Lh,G", [(128, 256, 1), (128, 256, 1024),
+                                     (256, 512, 1), (512, 256, 1)])
+def test_kernels_at_sweep_boundaries(cuda, Lr, Lh, G):
+    """K1 and K2 against their plain versions at reads of 1, 31, 32, 33,
+    127 and 129 rows (cut to the bucket) and haps of 1 base and of Lh: one
+    strip of 1-4 rows a lane (Lr 128), of up to 8 (Lr 256), and two strips
+    (Lr 512)."""
+    rng = np.random.default_rng(49 + Lr + G)
+    arrays = boundary_batch(rng, Lr, Lh, G)
+    t = compact.to_device(arrays, cuda)
+    got = indexed.pairhmm_indexed_compact(*t).cpu().numpy()
+    want = indexed.pairhmm_indexed_compact_torch(*t).cpu().numpy()
+    assert (want >= THR).any()
+    assert_forward_close(got, want)
+    assert np.all(got[want == 0] == 0)
+    q, gi, gc, rbase, rlen, hcode, hlen = t[:7]
+    d = (compact.materialize_channels(q, gi, gc).contiguous(), rbase.int(),
+         rlen, compact.broadcast_haps(hcode).contiguous(), hlen)
+    got = dense.pairhmm_dense(*d).cpu().numpy()
+    want = dense.pairhmm_dense_torch(*d).cpu().numpy()
+    assert_forward_close(got, want)
+    assert np.all(got[want == 0] == 0)
 
 
 @pytest.mark.gpu

@@ -4,7 +4,9 @@ Mirrors tests/test_banded_realign.py: a simulated region scored by the XLA
 engine, then every read realigned to its best haplotype. The port's
 realignment (the banded batch on the CPU, or the native SW batch) must give
 reads identical in position, cigar and bases to rovaca_tpu's with
-ROVACA_BANDED_REALIGN set to 0 and to 1.
+ROVACA_BANDED_REALIGN set to 0 and to 1. Each package realigns its own
+reads and haplotypes, made from the same seed by its own simulator and
+assembler, under the same likelihood matrix.
 """
 
 import copy
@@ -12,22 +14,16 @@ import copy
 import numpy as np
 import pytest
 
-from rovaca_tpu.native import sw_native
 from rovaca_tpu_torch.genotype import alignment_utils as port_au
+from rovaca_tpu_torch.native import sw_native
 from rovaca_tpu_torch.ops.sw import banded
 
 pytestmark = pytest.mark.skipif(not sw_native.available(),
                                 reason="native toolchain unavailable")
 
 
-@pytest.fixture(scope="module")
-def region_likelihoods():
-    """A realistic region: haplotypes + reads scored by the XLA engine."""
-    import simdata
-    from rovaca_tpu.assembly import assembler
-    from rovaca_tpu.genotype.likelihoods import AlleleLikelihoods
-    from rovaca_tpu.ops import pairhmm
-
+def _region(simdata, assembler):
+    """A realistic region from seed 11: finalized reads, haplotypes."""
     rng = np.random.default_rng(11)
     ref = simdata.random_ref(rng, 500)
     hap = list(ref)
@@ -37,10 +33,32 @@ def region_likelihoods():
     reads = simdata.simulate_fragments(rng, ref, "".join(hap), "chr1", 30,
                                        name_prefix="br_")
     fin = assembler.finalize_and_adjust(list(reads), 0, 499)
-    haps = assembler.assemble_region(fin, ref.encode(), 0)
+    return fin, assembler.assemble_region(fin, ref.encode(), 0)
+
+
+@pytest.fixture(scope="module")
+def region_likelihoods():
+    """The same region as each package's own objects, (rovaca_tpu's, the
+    port's): haplotypes + reads scored by rovaca_tpu's XLA engine."""
+    import simdata
+    from rovaca_tpu.assembly import assembler
+    from rovaca_tpu.genotype.likelihoods import AlleleLikelihoods
+    from rovaca_tpu.ops import pairhmm
+    from rovaca_tpu_torch.assembly import assembler as port_assembler
+    from rovaca_tpu_torch.genotype.likelihoods import \
+        AlleleLikelihoods as PortLikelihoods
+    from rovaca_tpu_torch.tools import simdata as port_simdata
+
+    fin, haps = _region(simdata, assembler)
     lik, kept = pairhmm.compute_likelihoods(
         fin, [h.bases for h in haps], engine="xla")
-    return AlleleLikelihoods(list(haps), [fin[i] for i in kept], lik)
+    p_fin, p_haps = _region(port_simdata, port_assembler)
+    assert [h.bases for h in p_haps] == [h.bases for h in haps]
+    assert [(r.name, r.pos, r.bases) for r in p_fin] == \
+        [(r.name, r.pos, r.bases) for r in fin]
+    return (AlleleLikelihoods(list(haps), [fin[i] for i in kept], lik),
+            PortLikelihoods(list(p_haps), [p_fin[i] for i in kept],
+                            lik.copy()))
 
 
 def _fresh(lik):
@@ -64,8 +82,9 @@ def _jax_realigned(lik, monkeypatch, banded_on):
 @pytest.mark.parametrize("banded_on", [False, True])
 def test_realignment_identical_to_reference(region_likelihoods, monkeypatch,
                                             banded_on):
-    want = _jax_realigned(region_likelihoods, monkeypatch, banded_on)
-    lik = _fresh(region_likelihoods)
+    jax_lik, port_lik = region_likelihoods
+    want = _jax_realigned(jax_lik, monkeypatch, banded_on)
+    lik = _fresh(port_lik)
     before = banded.LAUNCHES
     batches, fallbacks = port_au.realign_reads_to_their_best_haplotype(
         lik, "cpu")
@@ -84,7 +103,7 @@ def test_banded_and_native_realignment_agree(region_likelihoods,
     runs = []
     for flag in ("0", "1"):
         monkeypatch.setenv("ROVACA_BANDED_REALIGN", flag)
-        lik = _fresh(region_likelihoods)
+        lik = _fresh(region_likelihoods[1])
         port_au.realign_reads_to_their_best_haplotype(lik, "cpu")
         runs.append(_summary(lik))
     assert runs[0] == runs[1]
