@@ -8,8 +8,9 @@ toolkit. Phases, each printing its own lines and its seconds; any failure
 exits non-zero:
 
 0. card: name and power limit from nvidia-smi.
-1. build: nvcc builds the three kernels from the checkout, one nvcc each, all
-   started together; ptxas registers and spills for each.
+1. build: nvcc builds the three kernel sources from the checkout (K1, K2,
+   and K3's DP and traceback in one library), one nvcc each, all started
+   together; ptxas registers and spills for each kernel.
 2. K1 (indexed PairHMM) against its plain torch version on the card, on
    numpy-seeded compact batches at main-path shapes (ragged lengths, N
    bases, padding lanes and haps, repeated pair indices): rtol 2e-5 on pairs
@@ -22,10 +23,13 @@ exits non-zero:
 4. K3 (banded SW) against its plain version on numpy-seeded realignment
    batches (haps as refs, noisy read fragments as alts, diagonals from the
    read's offset, a few placed off the band) at Ln 256/512/1024 x B
-   64/1024: bt, colm, lastrow and edge bit-identical; the traced-back cigars
-   and offsets equal to the exact host SW's (the native SW for all, the
-   python oracle for the first few); the fallback count, and the time of the
-   backtrack band's copy to pinned host memory.
+   64/1024: bt, colm, lastrow and edge bit-identical; the traceback
+   kernel's packed slots equal to its plain version's; the cigars and
+   offsets of sw_align_banded_batch on the card equal to the exact host
+   SW's (the native SW for all, the python oracle for the first few); the
+   fallback count. Times: the DP, the traceback, the slots' copy to pinned
+   host memory (and its bytes), and, for the record, the copy of the whole
+   backtrack band that the slots replaced.
 5. main path: a 1 Mb / 30x diploid corpus (the port's
    tools.golden_e2e.generate, seed 424242) through ``rovaca_tpu_torch.cli
    HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native`` on the
@@ -34,9 +38,13 @@ exits non-zero:
    ALT, GT) with the other fields within golden_e2e's tolerances. Each K1
    launch's (G, Lr, Lh, real cells) and its bound are printed.
 6. realignment path: the same corpus with ROVACA_BANDED_REALIGN=1 and the
-   cuda engine. K3 must launch as often as ``stats["sw_launches"]`` counts,
-   at least once; its VCF must match the native run's; its fallbacks to the
-   host SW are printed.
+   cuda engine. K3's DP and traceback kernels must each launch as often as
+   ``stats["sw_launches"]`` counts, at least once; its VCF must match the
+   native run's; its fallbacks to the host SW are printed. Each launch's
+   (B, Ln, A, band cells) and its DP and traceback bounds, summed against
+   the K3 card time: after the counts are read, each launch replayed on its
+   recorded inputs, CUDA events around DP + traceback + slot copy, and
+   around each alone.
 7. region path: the port's ``RegionCaller.call_region`` (K2) over the first
    200+ active regions of the corpus, engine cuda then native: the same
    (pos, alleles, GT, GQ), PL within golden_e2e's PL_TOL, and K2 launched.
@@ -59,9 +67,11 @@ Every kernel's counter is set to 0 just before each of phases 5-8 and 10
 and read just after; phases 9 and 11 run in child processes, whose
 schedulers' launch counts their summary lines print. The line before the
 last is the kernels' JSON summary: each kernel's launches on its path, its
-time and its plain version's at the timed shape, and its bound there, the
-larger of its bytes over 3.35 TB/s and its operations over the peak rate of
-their type (PEAK_*); no single PyTorch call computes any of the three
+time and its plain version's at the timed shape (CUDA events on a stream
+held until the host has queued the call, so the card's time alone), and its
+bound there, the larger of its bytes over 3.35 TB/s and its operations over
+the peak rate of their type (PEAK_*), counting the work this run's data
+needs; no single PyTorch call computes any of the four
 functions, so ``library_ms`` is null. The last line is ``{"ok": true,
 "device": {...}}``. Nothing of jax or rovaca_tpu is imported.
 """
@@ -80,6 +90,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 RTOL = 2e-5           # the bar tests/test_pairhmm.py sets native vs XLA
 RUNS = 5
+HOLD_CYCLES = 2_000_000   # ~1 ms at 1.98 GHz: longer than a wrapper's enqueue
 # (Lr, Lh, G): the main path's read and hap length buckets and a small and a
 # full launch (scheduler.G_MAX); the plain version's time grows with
 # Lr * Lh * G
@@ -110,9 +121,12 @@ PEAK_I32 = 64 * 132 * 1.98e9
 # each; an FMA counts 2) and int32 ops a banded-SW band cell (diagonal:
 # compare, select, add; vertical: 2 adds, max; in-row gap scan: add, max,
 # compare, select; the cell: 2 max and the cutoff max; backtrack code:
-# compare, 2 selects)
+# compare, 2 selects); int32 ops a traceback walk step (band index, 2
+# range compares, the load's address, the sign test, 2 position updates, the
+# run-length compare)
 PAIRHMM_OPS = 11
 SW_OPS = 16
+TB_STEP_OPS = 8
 
 
 class PhaseError(Exception):
@@ -233,9 +247,13 @@ def k1_cells(rlen, hlen, hidx, ridx, Lr, Lh):
     return int((hl[:, :, None] * rl[:, None, :]).sum())
 
 
-def time_ms(fn, runs=RUNS):
+def time_ms(fn, runs=RUNS, hold=True):
     """Median of ``runs`` CUDA-event timings (after one warm-up call when
-    runs > 1); returns (median ms, output of the first call)."""
+    runs > 1); returns (median ms, output of the first call). With ``hold``
+    the stream first spins for HOLD_CYCLES, so the host has queued the start
+    event, ``fn``'s launches and the end event before the card reaches them:
+    the time is the card's alone, not the host's enqueue (which a launch of
+    tens of microseconds would otherwise mostly measure)."""
     import torch
     out = fn() if runs > 1 else None
     torch.cuda.synchronize()
@@ -243,6 +261,8 @@ def time_ms(fn, runs=RUNS):
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         a.record()
         res = fn()
         b.record()
@@ -389,8 +409,77 @@ def make_sw_batch(rng, Ln, B):
     return pairs, diags
 
 
+def sw_dp_bound(t, outs):
+    """bound() of a K3 DP launch on this data, both sides counting the rows
+    that need computing: rows 1..n whose band reaches columns 0..m (the
+    others are fill, which the traceback never reads). Bytes: the inputs
+    read once, those rows of bt and colm, row n's band and edge written once;
+    operations: SW_OPS int32 ops for each of those rows' 128 band cells.
+    Returns (ms, by, band cells, bytes, and for the record the bound with
+    every output byte, fill included, and over the band cells of all rows
+    1..n, skipped or not)."""
+    import torch
+    B, Ln = t[0].shape
+    n, m, off = (t[2][:, k].long() for k in range(3))
+    n = n.clamp(0, Ln)
+    first = torch.clamp(off - 127 + 64, min=1)
+    last = torch.minimum(n, m + off + 64)
+    rows = int((last - first + 1).clamp(min=0).sum())
+    cells = rows * 128
+    in_bytes = sum(x.numel() * x.element_size() for x in t)
+    n_bytes = in_bytes + rows * (128 * 2 + 4) + B * (128 * 4 + 4)
+    all_bytes = in_bytes + sum(x.numel() * x.element_size() for x in outs)
+    all_cells = int(n.sum()) * 128
+    return (*bound(n_bytes, SW_OPS * cells, PEAK_I32), cells, n_bytes,
+            bound(all_bytes, SW_OPS * cells, PEAK_I32)[0],
+            bound(all_bytes, SW_OPS * all_cells, PEAK_I32)[0])
+
+
+def sw_tb_bound(meta, decoded):
+    """bound() of a K3 traceback launch on this data: each alignment reads
+    meta, edge, row n's band and colm's rows 1..n, and every traced one the
+    bt cell of each walk step (an M base, or a whole I or D run) and writes
+    its header and elements; TB_STEP_OPS int32 ops a step. Returns (ms, by,
+    walk steps)."""
+    from rovaca_tpu_torch.reads.cigar import CigarOp
+    n = [int(x) for x in meta[:, 0].cpu()]
+    n_bytes = sum(4 * k + 4 * (3 + 1 + 128) for k in n)
+    ops = sum(2 * k + 4 * 128 for k in n)
+    steps = 0
+    for d in decoded:
+        if d is None:
+            n_bytes += 4 * 3
+            continue
+        walk = sum(length if op == CigarOp.M else 1 for op, length in d[1]
+                   if op != CigarOp.S)
+        steps += walk
+        n_bytes += 2 * walk + 4 * (3 + len(d[1]))
+        ops += TB_STEP_OPS * walk
+    return (*bound(n_bytes, ops, PEAK_I32), steps)
+
+
+def hold_traceback(got, want, where):
+    """The traceback kernel's slots against the plain version's: headers
+    equal and the decoded elements equal, slot for slot."""
+    from rovaca_tpu_torch.ops.sw import banded
+    import numpy as np
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    check(got.shape == want.shape, f"K3 traceback slots {got.shape}, plain "
+          f"{want.shape} at {where}")
+    H = banded.HEADER
+    err = int(np.abs(got[:, :H] - want[:, :H]).max(initial=0))
+    for g, w in zip(got, want):
+        if err == 0 and w[0] == 1:
+            err = int(np.abs(g[H:H + w[2]] - w[H:H + w[2]]).max(initial=0))
+    decoded = banded.unpack_slots(got)
+    check(err == 0 and decoded == banded.unpack_slots(want),
+          f"K3 traceback slots differ from the plain version's at {where}")
+    return decoded, err
+
+
 def phase_sw(shapes=SW_SHAPES):
-    """K3 against its plain version, and its traceback against host SW."""
+    """K3 (DP and traceback) against its plain versions, and its cigars
+    against the host SW."""
     import numpy as np
     import torch
     from rovaca_tpu_torch.assembly.sw import (READ_TO_HAPLOTYPE_PARAMS,
@@ -403,13 +492,14 @@ def phase_sw(shapes=SW_SHAPES):
     dev = platform.device()
     P = READ_TO_HAPLOTYPE_PARAMS
     params = (P.match, P.mismatch, P.gap_open, P.gap_extend)
+    soft = OverhangStrategy.SOFTCLIP
     check(sw_native.available(), "native SW unavailable (g++ build failed?)")
     rng = np.random.default_rng(20261018)
-    summary = {"max_abs_err": 0}
+    summary = {"max_abs_err": 0, "tb_err": 0}
     for Ln, B in shapes:
         pairs, diags = make_sw_batch(rng, Ln, B)
-        *arrays, C = banded.pack_batch([r for r, _ in pairs],
-                                       [a for _, a in pairs], diags)
+        refs, alts = [r for r, _ in pairs], [a for _, a in pairs]
+        *arrays, C = banded.pack_batch(refs, alts, diags)
         check(arrays[0].shape == (B, Ln), f"K3 packing gave "
               f"{arrays[0].shape} for {(Ln, B)}")
         t = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -421,21 +511,34 @@ def phase_sw(shapes=SW_SHAPES):
         equal = [bool(torch.equal(k, p)) for k, p in zip(k_out, p_out)]
         err = max(int((k.long() - p.long()).abs().max())
                   for k, p in zip(k_out, p_out))
-        # the backtrack band's copy to pinned host memory, alone
+        # the traceback kernel on the DP's outputs, against its plain version
+        S = banded.slot_width(refs, alts)
+        tb_ms, tb_out = time_ms(lambda: banded.sw_traceback(
+            *k_out, t[2], overhang=soft, S=S))
+        tbp_ms, tb_plain = time_ms(lambda: banded.sw_traceback_torch(
+            *k_out, t[2], overhang=soft, S=S), 1)
+        decoded, tb_err = hold_traceback(tb_out, tb_plain, (Ln, B))
+        summary["tb_err"] = max(summary["tb_err"], tb_err)
+        # the slots' copy to pinned host memory, and for the record the
+        # whole backtrack band's, which the slots replaced
+        slots_host = torch.empty(tb_out.shape, dtype=tb_out.dtype,
+                                 pin_memory=True)
+        res_ms, _ = time_ms(lambda: slots_host.copy_(tb_out,
+                                                     non_blocking=True))
+        res_bytes = tb_out.numel() * tb_out.element_size()
         bt = k_out[0]
         host = torch.empty(bt.shape, dtype=bt.dtype, pin_memory=True)
         copy_ms, _ = time_ms(lambda: host.copy_(bt, non_blocking=True))
+        bt_bytes = bt.numel() * bt.element_size()
 
         res = banded.sw_align_banded_batch(
-            pairs, P, overhang=OverhangStrategy.SOFTCLIP, diagonals=diags,
-            device=dev)
-        native = sw_native.align_batch(pairs, P,
-                                       int(OverhangStrategy.SOFTCLIP))
+            pairs, P, overhang=soft, diagonals=diags, device=dev)
+        native = sw_native.align_batch(pairs, P, int(soft))
         bad = [k for k, (r, nat) in enumerate(zip(res, native))
                if nat is None or (str(r.result.cigar), r.result.alignment_offset)
                != (str(Cigar(zip(nat[0], nat[1]))), nat[2])]
         for k in range(SW_ORACLE):
-            want = _sw_align_python(*pairs[k], P, OverhangStrategy.SOFTCLIP)
+            want = _sw_align_python(*pairs[k], P, soft)
             if (str(res[k].result.cigar), res[k].result.alignment_offset) != (
                     str(want.cigar), want.alignment_offset):
                 bad.append(k)
@@ -443,11 +546,14 @@ def phase_sw(shapes=SW_SHAPES):
         forced = sum(d < 0 for d in diags)
         print(f"[K3] Ln={Ln} B={B}: outputs_bit_equal={all(equal)} "
               f"(bt, colm, lastrow, edge: {equal}) max_abs_err={err} "
-              f"cigars_equal_host_sw="
-              f"{not bad} fallbacks={fallbacks} (forced {forced}) "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} (plain runs "
-              f"{p_runs}) bt_copy_ms={copy_ms:.4f} "
-              f"bt_mb={bt.numel() * 2 / 2**20:.2f}", flush=True)
+              f"traceback_slots_equal=True cigars_equal_host_sw={not bad} "
+              f"fallbacks={fallbacks} (forced {forced}) dp_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} (plain "
+              f"runs {p_runs}) traceback_ms={tb_ms:.4f} traceback_plain_ms="
+              f"{tbp_ms:.4f} result_copy_ms={res_ms:.4f} result_bytes="
+              f"{res_bytes} (S={S}) band_copy_ms={copy_ms:.4f} band_bytes="
+              f"{bt_bytes} ({bt_bytes / res_bytes:.1f}x the slots)",
+              flush=True)
         check(all(equal) and err == 0, f"K3 outputs differ from the plain "
               f"version's at {(Ln, B)}: {equal}")
         summary["max_abs_err"] = max(summary["max_abs_err"], err)
@@ -456,17 +562,29 @@ def phase_sw(shapes=SW_SHAPES):
         check(fallbacks >= forced, f"{forced} off-band pairs but "
               f"{fallbacks} fallbacks at {(Ln, B)}")
         if (Ln, B) == SW_TIMED:
-            # rows 1..n of every alignment, 128 band cells a row
-            cells = int(t[2][:, 0].clamp(0, Ln).sum()) * 128
-            n_bytes = sum(x.numel() * x.element_size()
-                          for x in (*t, *k_out))
-            bound_ms, bound_by = bound(n_bytes, SW_OPS * cells, PEAK_I32)
+            bound_ms, bound_by, cells, n_bytes, fill_ms, all_ms = sw_dp_bound(
+                t, k_out)
+            tb_bound_ms, tb_by, steps = sw_tb_bound(t[2], decoded)
+            # unheld, the host's enqueue included, as earlier versions timed
+            enq_ms, _ = time_ms(lambda: banded.banded_sw(*t, params=params,
+                                                         C=C), hold=False)
             summary.update(ms=k_ms, plain_ms=p_ms, copy_ms=copy_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           tb_ms=tb_ms, tb_plain_ms=tbp_ms,
+                           tb_bound_ms=tb_bound_ms, tb_bound_by=tb_by,
+                           res_ms=res_ms, res_bytes=res_bytes,
+                           bt_bytes=bt_bytes, enq_ms=enq_ms)
             print(f"[K3] timed shape {SW_TIMED}: bound_ms={bound_ms:.4f} "
                   f"({bound_by}; {n_bytes} bytes at {PEAK_BYTES:.3g}/s, "
                   f"{SW_OPS} int32 ops x {cells} cells at {PEAK_I32:.3g}/s) "
-                  f"share={bound_ms / k_ms:.3f}", flush=True)
+                  f"share={bound_ms / k_ms:.3f}; with every output byte, "
+                  f"fill included, bound_ms={fill_ms:.4f} share="
+                  f"{fill_ms / k_ms:.3f}; over all rows 1..n, skipped or not, "
+                  f"bound_ms={all_ms:.4f} share={all_ms / k_ms:.3f}; dp_ms "
+                  f"with the host's enqueue (unheld stream)={enq_ms:.4f} "
+                  f"share={all_ms / enq_ms:.3f}; traceback bound_ms="
+                  f"{tb_bound_ms:.5f} ({tb_by}; {steps} walk steps) share="
+                  f"{tb_bound_ms / tb_ms:.3f}", flush=True)
     return summary
 
 
@@ -480,13 +598,15 @@ def reset_counts():
     from rovaca_tpu_torch.ops.pairhmm import dense, indexed
     from rovaca_tpu_torch.ops.sw import banded
     indexed.LAUNCHES = dense.LAUNCHES = banded.LAUNCHES = 0
+    banded.TB_LAUNCHES = 0
 
 
 def read_counts():
     from rovaca_tpu_torch.ops.pairhmm import dense, indexed
     from rovaca_tpu_torch.ops.sw import banded
     return {"pairhmm_indexed": indexed.LAUNCHES,
-            "pairhmm_dense": dense.LAUNCHES, "sw_banded": banded.LAUNCHES}
+            "pairhmm_dense": dense.LAUNCHES, "sw_banded": banded.LAUNCHES,
+            "sw_traceback": banded.TB_LAUNCHES}
 
 
 def _hc(bam, ref, out, engine, stats, *extra):
@@ -584,42 +704,116 @@ def phase_main_path(workdir):
 
 def phase_realign_path(workdir, default_wall_s):
     """The same corpus with ROVACA_BANDED_REALIGN=1 on the cuda engine: the
-    realignment runs K3 on the card."""
+    realignment runs K3 (DP, then traceback) on the card."""
     import torch
+    from rovaca_tpu_torch.assembly.sw import OverhangStrategy
+    from rovaca_tpu_torch.ops.sw import banded
     from rovaca_tpu_torch.tools import golden_e2e
     out_dir = os.path.join(workdir, "banded")
     os.makedirs(out_dir)
     shutil.copy(os.path.join(workdir, "ref.vcf"), out_dir)   # native run's
     stats = {}
+    # the DP launches' inputs, kept to print and replay them after the run
+    launched = []
+    kernel = banded.banded_sw
+
+    def recording(refs, alts, meta, *, params, C, **kw):
+        launched.append((refs, alts, meta, C, params))
+        return kernel(refs, alts, meta, params=params, C=C, **kw)
+
     os.environ["ROVACA_BANDED_REALIGN"] = "1"
     try:
         torch.cuda.synchronize()
         reset_counts()
+        banded.banded_sw = recording
         rc = _hc(os.path.join(workdir, "sample.bam"),
                  os.path.join(workdir, "ref.fa"),
                  os.path.join(out_dir, "ours.vcf"), "cuda", stats)
         torch.cuda.synchronize()
         counts = read_counts()
     finally:
+        banded.banded_sw = kernel
         del os.environ["ROVACA_BANDED_REALIGN"]
     check(rc == 0, f"banded realignment run exited {rc}")
     _print_run("realign", "cuda", stats)
-    launches = counts["sw_banded"]
-    print(f"[realign] K3 launches={launches} sw_launches="
-          f"{stats['sw_launches']} sw_fallbacks={stats['sw_fallbacks']} "
-          f"wall_s={stats['wall_s']:.3f} default_path_wall_s="
-          f"{default_wall_s:.3f}", flush=True)
+    launches, tb_launches = counts["sw_banded"], counts["sw_traceback"]
+    print(f"[realign] K3 launches: DP={launches} traceback={tb_launches} "
+          f"sw_launches={stats['sw_launches']} sw_fallbacks="
+          f"{stats['sw_fallbacks']} wall_s={stats['wall_s']:.3f} "
+          f"default_path_wall_s={default_wall_s:.3f}", flush=True)
     check(launches > 0, "the realignment path made no K3 launch")
-    check(launches == stats["sw_launches"], f"K3 counted {launches} "
-          f"launches, the caller {stats['sw_launches']}")
+    check(launches == tb_launches == stats["sw_launches"] == len(launched),
+          f"K3 counted {launches} DP and {tb_launches} traceback launches, "
+          f"the caller {stats['sw_launches']}, recorded {len(launched)}")
     check(counts["pairhmm_indexed"] == stats["launches"] > 0,
           "the realignment path's K1 launches do not add up")
     rc = golden_e2e.diff(out_dir)   # ours = banded cuda, ref = native
     check(rc == 0, "the banded realignment VCF diverges from the native "
           "engine's")
     check_imports()
-    return {"launches": launches, "fallbacks": stats["sw_fallbacks"],
-            "wall_s": stats["wall_s"]}
+
+    # every launch's shape and bounds (the traceback's from its replayed
+    # slots), and its card time: DP + traceback + slot copy, and each alone
+    params = launched[0][4]
+    soft = OverhangStrategy.SOFTCLIP
+    dp_total = tb_total = 0.0
+    ms = dict.fromkeys(("k3", "dp", "tb", "copy", "band"), 0.0)
+    shapes, steps_total, slot_bytes, band_bytes = [], 0, 0, 0
+    for refs, alts, meta, C, _ in launched:
+        B, Ln = refs.shape
+        S = int((meta[:, 0] + meta[:, 1]).max()) + banded.HEADER
+        slots = banded.sw_traceback(*kernel(refs, alts, meta, params=params,
+                                            C=C), meta, overhang=soft, S=S)
+        host = torch.empty(slots.shape, dtype=slots.dtype, pin_memory=True)
+
+        def k3():
+            out = banded.sw_traceback(*kernel(refs, alts, meta,
+                                              params=params, C=C),
+                                      meta, overhang=soft, S=S)
+            host.copy_(out, non_blocking=True)
+
+        k3_ms, _ = time_ms(k3)
+        dp_ms, outs = time_ms(lambda: kernel(refs, alts, meta,
+                                             params=params, C=C))
+        tb_ms, _ = time_ms(lambda: banded.sw_traceback(
+            *outs, meta, overhang=soft, S=S))
+        c_ms, _ = time_ms(lambda: host.copy_(slots, non_blocking=True))
+        # for the record: the band's copy, which the slots replaced
+        band = torch.empty(outs[0].shape, dtype=outs[0].dtype,
+                           pin_memory=True)
+        b_ms, _ = time_ms(lambda: band.copy_(outs[0], non_blocking=True))
+        dp_b, _, cells, _, _, _ = sw_dp_bound((refs, alts, meta), outs)
+        tb_b, _, steps = sw_tb_bound(
+            meta, banded.unpack_slots(slots.cpu().numpy()))
+        dp_total += dp_b
+        tb_total += tb_b
+        for key, v in zip(ms, (k3_ms, dp_ms, tb_ms, c_ms, b_ms)):
+            ms[key] += v
+        slot_bytes += slots.numel() * slots.element_size()
+        band_bytes += outs[0].numel() * outs[0].element_size()
+        steps_total += steps
+        shapes.append(f"{B}/{Ln}/{alts.shape[1]}/{cells}/"
+                      f"{dp_b * 1e3:.3f}/{tb_b * 1e3:.3f}")
+    print(f"[realign] K3 launches as B/Ln/A/band cells/DP bound us/"
+          f"traceback bound us: {' '.join(shapes)}", flush=True)
+    Bs = sorted(x[0].shape[0] for x in launched)
+    Lns = sorted(x[0].shape[1] for x in launched)
+    print(f"[realign] K3 launch B min/median/max {Bs[0]}/{Bs[len(Bs) // 2]}/"
+          f"{Bs[-1]}, Ln min/median/max {Lns[0]}/{Lns[len(Lns) // 2]}/"
+          f"{Lns[-1]}; bounds summed: DP {dp_total:.4f} ms + traceback "
+          f"{tb_total:.4f} ms ({steps_total} walk steps) against "
+          f"{ms['k3']:.4f} ms of K3 card time (the {launches} launches "
+          f"replayed, events around DP + traceback + slot copy); alone, "
+          f"summed: DP {ms['dp']:.4f} (bound share "
+          f"{dp_total / ms['dp']:.4f}), traceback {ms['tb']:.4f}, slot copy "
+          f"{ms['copy']:.4f} ({slot_bytes} bytes; the band's copy "
+          f"{ms['band']:.4f}, {band_bytes} bytes)", flush=True)
+    return {"launches": launches, "tb_launches": tb_launches,
+            "fallbacks": stats["sw_fallbacks"], "wall_s": stats["wall_s"],
+            "card_ms": ms["k3"], "dp_ms": ms["dp"], "tb_ms": ms["tb"],
+            "copy_ms": ms["copy"], "slot_bytes": slot_bytes,
+            "band_copy_ms": ms["band"], "band_bytes": band_bytes,
+            "dp_bound_ms": dp_total, "tb_bound_ms": tb_total}
 
 
 def region_tasks(workdir, n_min=MIN_REGIONS):
@@ -845,7 +1039,8 @@ def phase_device_list():
     check_imports()
     return {"pairhmm_indexed": counts["pairhmm_indexed"],
             "pairhmm_dense": counts["pairhmm_dense"], "sw_banded":
-            counts["sw_banded"], "wall_s": wall}
+            counts["sw_banded"], "sw_traceback": counts["sw_traceback"],
+            "wall_s": wall}
 
 
 _SUMMARY = re.compile(r"\[rovaca_tpu_torch\] (\d+) reads, (\d+) regions, "
@@ -1048,8 +1243,31 @@ def main():
          "err_of": "bt, colm, lastrow and edge (integers, bit-equal)",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": None,
-         "bt_copy_ms": k3["copy_ms"], "fallbacks": realign["fallbacks"],
+         "library_ms": None, "ms_with_enqueue": k3["enq_ms"],
+         "path_ms": realign["dp_ms"], "path_bound_ms": realign["dp_bound_ms"],
+         "band_copy_ms": k3["copy_ms"], "band_bytes": k3["bt_bytes"],
+         "fallbacks": realign["fallbacks"],
+         "path_card_ms": realign["card_ms"],
+         "shape": {"Ln": SW_TIMED[0], "B": SW_TIMED[1]}},
+        {"name": "sw_traceback", "route": "cuda",
+         "source": "rovaca_tpu_torch/csrc/sw_banded.cu",
+         "replaces": "rovaca_tpu/ops/sw/banded.py:286",
+         "replaces_what": "_traceback_band, host code run on _banded_call's "
+                          "outputs (not a Pallas kernel)",
+         "launches": realign["tb_launches"],
+         "device_list_launches": device_list["sw_traceback"],
+         "max_abs_err": k3["tb_err"],
+         "err_of": "packed slots (integers, equal slot for slot)",
+         "ms": k3["tb_ms"], "plain_ms": k3["tb_plain_ms"],
+         "bound_ms": k3["tb_bound_ms"], "bound_by": k3["tb_bound_by"],
+         "library_ms": None, "result_copy_ms": k3["res_ms"],
+         "result_bytes": k3["res_bytes"],
+         "path_ms": realign["tb_ms"],
+         "path_bound_ms": realign["tb_bound_ms"],
+         "path_copy_ms": realign["copy_ms"],
+         "path_result_bytes": realign["slot_bytes"],
+         "path_band_copy_ms": realign["band_copy_ms"],
+         "path_band_bytes": realign["band_bytes"],
          "shape": {"Ln": SW_TIMED[0], "B": SW_TIMED[1]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

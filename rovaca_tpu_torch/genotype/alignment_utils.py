@@ -356,13 +356,14 @@ def _best_haplotype(col, prio):
     return best
 
 
-def realign_reads_to_their_best_haplotype(likelihoods, device="cpu"):
+def realign_reads_to_their_best_haplotype(likelihoods, device=None):
     """Replace evidence reads with realigned versions (per-read best
     haplotype, ties to the reference haplotype). Mutates
     ``likelihoods.reads``. With the banded gate on, the reads that are not
     exact substrings of their haplotype go through one banded batch on
-    ``device``. Returns (banded batches run, alignments that fell back to
-    the host SW)."""
+    ``device`` (default: the card, resolved only when a batch runs, so it
+    raises then without one; "cpu" runs the plain versions). Returns (banded
+    batches run, alignments that fell back to the host SW)."""
     haps = likelihoods.alleles
     if not haps:
         return 0, 0

@@ -1,4 +1,4 @@
-"""Banded Smith-Waterman: the CUDA kernel, its plain version, host traceback.
+"""Banded Smith-Waterman: the DP and traceback kernels, their plain versions.
 
 Counterpart of rovaca_tpu/ops/sw/banded.py, which imports jax at module top,
 so its host traceback is carried over here with the same logic. Affine-gap
@@ -19,11 +19,17 @@ horizontal jump), colm (B, Ln) int32 (score at column m per row), lastrow
 (B, 128) int32 (row n's band) and edge (B,) int32 (best score on the band's
 outermost lanes, the fallback guard). Rows past n: bt 0, colm NEG.
 
-``banded_sw`` is the wrapper: on CUDA tensors it launches the hand-written
-kernel csrc/sw_banded.cu (or raises), on CPU tensors it runs
-``banded_sw_torch``. ``sw_align_banded_batch`` packs pairs, runs the band on
-a device, traces back on the host and falls back to the exact host SW where
-the band cannot be trusted, flagging each such alignment.
+The traceback turns those into one packed int32 slot an alignment, of S >=
+max(n + m) + 3 entries: [status (1 traced, 0 fall back), alignment offset,
+element count, elements...], the elements in the walk's order (the cigar
+reversed), each (length << 4) | op. Entries past the count are unspecified.
+
+``banded_sw`` and ``sw_traceback`` are the wrappers: on CUDA tensors they
+launch the hand-written kernels of csrc/sw_banded.cu (or raise), on CPU
+tensors they run ``banded_sw_torch`` and ``sw_traceback_torch``.
+``sw_align_banded_batch`` packs pairs, runs both on a device, brings back
+only the slots, decodes them, and falls back to the exact host SW where the
+band cannot be trusted, flagging each such alignment.
 """
 
 import ctypes
@@ -34,11 +40,15 @@ import torch
 from ...assembly.sw import (LOW_INIT_VALUE, MATRIX_MIN_CUTOFF,
                             OverhangStrategy, SWResult, _sw_align_python)
 from ...reads.cigar import Cigar, CigarOp
+from ...utils import platform
 from .. import build
 
 W = 128                 # band width
 NEG = int(LOW_INIT_VALUE)
-LAUNCHES = 0            # kernel launches made by banded_sw
+HEADER = 3              # status, alignment offset, element count
+KEY_LIMIT = 2 ** 23     # |scores| the DP kernel's (value, index) keys hold
+LAUNCHES = 0            # DP kernel launches made by banded_sw
+TB_LAUNCHES = 0         # traceback kernel launches made by sw_traceback
 
 
 def _shift_left(x, fill):
@@ -168,21 +178,34 @@ def _check(refs, alts, meta, C):
                          f"(Ln={refs.shape[1]}, A={alts.shape[1]})")
 
 
-def _kernel_lib():
-    fn = build.load("sw_banded").rovaca_sw_banded
+def _kernel_fn(name, n_ptr_in, n_int, n_ptr_out):
+    fn = getattr(build.load("sw_banded"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p] * 5)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p] * n_ptr_out)
     return fn
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def score_bound(params, Ln, A):
+    """A bound on |score| (and on the gap scan's B[k]) anywhere in a band of
+    Ln rows over A alt columns: every path from row or column 0 has at most
+    2 (Ln + A) steps, each worth at most the sum of |params|."""
+    return sum(abs(int(p)) for p in params) * (2 * (Ln + A) + 2 * W)
 
 
 def banded_sw(refs, alts, meta, *, params, C, indel_init=False):
     """Run the banded DP of B alignments (layout in the module docstring).
 
     CUDA tensors: one launch of the CUDA kernel on the current stream, no
-    synchronisation; a failed build or launch raises. CPU tensors: the plain
-    version. Returns (bt, colm, lastrow, edge) on the inputs' device.
+    synchronisation; a failed build or launch raises, and so do scores
+    that could pass KEY_LIMIT (``score_bound``), which the kernel's scan
+    keys need. CPU tensors: the plain version. Returns (bt, colm, lastrow, edge) on the
+    inputs' device.
     """
     global LAUNCHES
     _check(refs, alts, meta, C)
@@ -193,6 +216,10 @@ def banded_sw(refs, alts, meta, *, params, C, indel_init=False):
         raise ValueError(f"unsupported device {refs.device}")
     B, Ln = refs.shape
     A = alts.shape[1]
+    wm, wmm, wo, we = (int(p) for p in params)
+    if score_bound(params, Ln, A) >= KEY_LIMIT:
+        raise ValueError(f"scores {params} over Ln={Ln}, A={A} may reach "
+                         f"2^23, past the kernel's scan keys")
     dev = refs.device
     bt = torch.empty((B, Ln, W), dtype=torch.int16, device=dev)
     colm = torch.empty((B, Ln), dtype=torch.int32, device=dev)
@@ -200,18 +227,104 @@ def banded_sw(refs, alts, meta, *, params, C, indel_init=False):
     edge = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return bt, colm, lastrow, edge
-    fn = _kernel_lib()
-    wm, wmm, wo, we = (int(p) for p in params)
+    fn = _kernel_fn("rovaca_sw_banded", 3, 9, 5)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(refs.data_ptr(), alts.data_ptr(), meta.data_ptr(),
                  B, Ln, A, C, wm, wmm, wo, we, int(bool(indel_init)),
                  bt.data_ptr(), colm.data_ptr(), lastrow.data_ptr(),
-                 edge.data_ptr(), stream)
+                 edge.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(f"sw_banded launch failed: CUDA error {err}")
     LAUNCHES += 1
     return bt, colm, lastrow, edge
+
+
+def _check_traceback(bt, colm, lastrow, edge, meta, overhang, S):
+    if overhang not in (OverhangStrategy.SOFTCLIP, OverhangStrategy.IGNORE):
+        raise ValueError(f"the band traceback takes SOFTCLIP or IGNORE, "
+                         f"not {overhang!r}")
+    B, Ln = colm.shape
+    shapes = {"bt": (bt, (B, Ln, W), torch.int16),
+              "lastrow": (lastrow, (B, W), torch.int32),
+              "edge": (edge, (B,), torch.int32),
+              "meta": (meta, (B, 3), torch.int32),
+              "colm": (colm, (B, Ln), torch.int32)}
+    for name, (t, shape, dtype) in shapes.items():
+        if t.device != colm.device:
+            raise ValueError(f"{name} on {t.device}, colm on {colm.device}")
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous {dtype} of "
+                             f"shape {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if S <= HEADER:
+        raise ValueError(f"slot width {S}: no room past the header")
+
+
+def sw_traceback_torch(bt, colm, lastrow, edge, meta, *, overhang, S):
+    """Plain version of the traceback kernel: ``_traceback_band`` on each
+    alignment, packed into (B, S) int32 slots (module docstring) on the
+    inputs' device; entries past each count are 0. An alignment whose
+    cigar would not fit its slot falls back (none does at S >= max(n + m) +
+    3)."""
+    dev = colm.device
+    bt, colm, lastrow, edge, meta = (t.cpu().numpy() for t in
+                                     (bt, colm, lastrow, edge, meta))
+    B, Ln = colm.shape
+    out = np.zeros((B, S), dtype=np.int32)
+    for k in range(B):
+        n, m, off = (int(x) for x in meta[k])
+        res = _traceback_band(bt[k], colm[k], lastrow[k], min(n, Ln), m, off,
+                              overhang, int(edge[k]))
+        if res is None or len(res.cigar.elements) > S - HEADER:
+            continue
+        elems = res.cigar.elements[::-1]          # the walk's order
+        out[k, :HEADER] = (1, res.alignment_offset, len(elems))
+        out[k, HEADER:HEADER + len(elems)] = [(length << 4) | int(op)
+                                              for op, length in elems]
+    return torch.from_numpy(out).to(dev)
+
+
+def sw_traceback(bt, colm, lastrow, edge, meta, *, overhang, S):
+    """Trace back B alignments from banded_sw's outputs into (B, S) int32
+    slots (module docstring). CUDA tensors: one launch of the traceback
+    kernel on the current stream, no synchronisation; a failed build or
+    launch raises. CPU tensors: the plain version."""
+    global TB_LAUNCHES
+    _check_traceback(bt, colm, lastrow, edge, meta, overhang, S)
+    dev = colm.device
+    if dev.type == "cpu":
+        return sw_traceback_torch(bt, colm, lastrow, edge, meta,
+                                  overhang=overhang, S=S)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    B, Ln = colm.shape
+    out = torch.empty((B, S), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    fn = _kernel_fn("rovaca_sw_traceback", 5, 4, 2)
+    with torch.cuda.device(dev):
+        err = fn(bt.data_ptr(), colm.data_ptr(), lastrow.data_ptr(),
+                 edge.data_ptr(), meta.data_ptr(), B, Ln, S, int(overhang),
+                 out.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"sw_traceback launch failed: CUDA error {err}")
+    TB_LAUNCHES += 1
+    return out
+
+
+def unpack_slots(packed):
+    """(B, S) packed slots (numpy) -> per alignment None (fall back) or
+    (alignment offset, [(CigarOp, length), ...] in the walk's order)."""
+    out = []
+    for row in packed:
+        if row[0] != 1:
+            out.append(None)
+            continue
+        cnt = int(row[2])
+        out.append((int(row[1]), [(CigarOp(int(e) & 15), int(e) >> 4)
+                                  for e in row[HEADER:HEADER + cnt]]))
+    return out
 
 
 class BandedSWResult:
@@ -337,24 +450,26 @@ def pack_batch(refs, alts, diagonals):
     return ref_arr, alt_arr, meta, C
 
 
-def _to_host(t):
-    """Device tensor -> numpy, through pinned memory on CUDA."""
-    if t.device.type == "cpu":
-        return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    return host
+def slot_width(refs, alts):
+    """Packed slot width of a batch: max(n + m) + HEADER entries, room for
+    every cigar a walk can give (it has at most n + m elements)."""
+    return max(len(r) + len(a) for r, a in zip(refs, alts)) + HEADER
 
 
 def sw_align_banded_batch(pairs, params, overhang=OverhangStrategy.SOFTCLIP,
-                          diagonals=None, device="cpu"):
-    """Align [(ref, alt), ...] in a 128-wide diagonal band on ``device``.
+                          diagonals=None, device=None):
+    """Align [(ref, alt), ...] in a 128-wide diagonal band on ``device``
+    (default: the card, ``utils.platform.device()``, which raises without
+    one; pass "cpu" for the plain versions).
 
-    diagonals[k] is alt k's expected start within ref (default
-    (len(ref) - len(alt)) // 2). Returns one BandedSWResult per pair whose
-    .result is the exact GATK SW output; .fell_back is True where the pair
-    went to the host SW instead: every INDEL / LEADING_INDEL pair (a global
-    alignment no fixed band soundly holds) and every band miss.
+    On a card the DP and the traceback kernels run back to back on the
+    current stream, and only the packed slots come back, through pinned
+    memory, after one synchronisation. diagonals[k] is alt k's expected
+    start within ref (default (len(ref) - len(alt)) // 2). Returns one
+    BandedSWResult per pair whose .result is the exact GATK SW output;
+    .fell_back is True where the pair went to the host SW instead: every
+    INDEL / LEADING_INDEL pair (a global alignment no fixed band soundly
+    holds) and every band miss.
     """
     if not pairs:
         return []
@@ -366,28 +481,32 @@ def sw_align_banded_batch(pairs, params, overhang=OverhangStrategy.SOFTCLIP,
     if diagonals is None:
         diagonals = [(len(r) - len(a)) // 2 for r, a in zip(refs, alts)]
     diagonals = [int(d) for d in diagonals]
+    dev = platform.device() if device is None else torch.device(device)
     ref_arr, alt_arr, meta, C = pack_batch(refs, alts, diagonals)
-    dev = torch.device(device)
-    pin = dev.type == "cuda"
+    S = slot_width(refs, alts)
+    scores = (params.match, params.mismatch, params.gap_open,
+              params.gap_extend)
     t = [torch.from_numpy(a) for a in (ref_arr, alt_arr, meta)]
-    if pin:
-        t = [x.pin_memory().to(dev, non_blocking=True) for x in t]
-    outs = banded_sw(*t, params=(params.match, params.mismatch,
-                                 params.gap_open, params.gap_extend),
-                     C=C, indel_init=False)
-    outs = [_to_host(o) for o in outs]
-    if pin:
-        torch.cuda.current_stream(dev).synchronize()
-    bt, colm, lastrow, edge = (np.asarray(o) for o in outs)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            t = [x.pin_memory().to(dev, non_blocking=True) for x in t]
+            slots = sw_traceback(*banded_sw(*t, params=scores, C=C), t[2],
+                                 overhang=overhang, S=S)
+            packed = torch.empty(slots.shape, dtype=slots.dtype,
+                                 pin_memory=True)
+            packed.copy_(slots, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+    else:
+        packed = sw_traceback(*banded_sw(*t, params=scores, C=C), t[2],
+                              overhang=overhang, S=S)
 
     out = []
-    for k in range(len(pairs)):
-        n, m = len(refs[k]), len(alts[k])
-        res = _traceback_band(bt[k], colm[k], lastrow[k], n, m, diagonals[k],
-                              overhang, int(edge[k]))
-        if res is None:
+    for k, traced in enumerate(unpack_slots(packed.numpy())):
+        if traced is None:
             out.append(BandedSWResult(
                 _sw_align_python(refs[k], alts[k], params, overhang), True))
         else:
-            out.append(BandedSWResult(res, False))
+            offset, elems = traced
+            out.append(BandedSWResult(SWResult(Cigar(elems[::-1]), offset),
+                                      False))
     return out

@@ -9,7 +9,8 @@ Tolerances: for the PairHMM kernels rtol 2e-5 against the plain torch
 version on pairs at or above MIN_ACCEPTED_F32, the same set of pairs below it
 (the float64 rescue set), exact zeros on padding lanes and haps; for the
 banded SW kernel none: its four outputs must be bit-identical to the plain
-version's, and its cigars equal to the exact host SW's.
+version's, its traceback kernel's slots equal to the plain traceback's,
+and its cigars equal to the exact host SW's.
 """
 
 import numpy as np
@@ -261,6 +262,140 @@ def test_banded_batch_on_card_matches_host_sw(cuda):
                                     OverhangStrategy.SOFTCLIP)
             assert str(r.result.cigar) == str(want.cigar)
             assert r.result.alignment_offset == want.alignment_offset
+
+
+def _sw_cases_at(rng, n, Ln):
+    """n pairs that pack to Ln: haps of Ln - 127 .. Ln bases, reads noisy
+    20-150 base fragments with a deletion in a third of them, every fifth
+    diagonal moved off the band."""
+    pairs, diags = [], []
+    for k in range(n):
+        hap = rng.choice(list("ACGT"), size=int(rng.integers(max(Ln - 100, 60),
+                                                 Ln + 1)))
+        rl = int(rng.integers(20, min(151, len(hap) - 10)))
+        off = int(rng.integers(0, len(hap) - rl))
+        read = hap[off:off + rl].copy()
+        read[rng.random(rl) < 0.02] = "C"
+        if k % 3 == 1:
+            cut = int(rng.integers(5, rl - 5))
+            read = np.concatenate([read[:cut], read[cut + 2:]])
+        pairs.append(("".join(hap).encode(), "".join(read).encode()))
+        diags.append(off if k % 5 != 4 else -(rl + 200))
+    return pairs, diags
+
+
+def _hold_traceback(got, want):
+    """The traceback kernel's slots against the plain version's: header
+    and elements equal, slot for slot (entries past the count are free)."""
+    assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got[:, :banded.HEADER],
+                                  want[:, :banded.HEADER])
+    assert banded.unpack_slots(got) == banded.unpack_slots(want)
+
+
+# (B, Ln): one alignment, a partial block, one alignment past a full
+# block, the full launch; 128 and 1024 rows
+SW_BOUNDARY = [(1, 128), (2, 128), (3, 1024), (33, 128), (33, 1024),
+               (1024, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Ln", SW_BOUNDARY)
+def test_banded_kernels_at_boundary_shapes(cuda, B, Ln):
+    """The DP bit-identical to the plain version, and the traceback kernel
+    equal to its plain version slot for slot."""
+    rng = np.random.default_rng(50 + B + Ln)
+    pairs, diags = _sw_cases_at(rng, B, Ln)
+    refs = [r for r, _ in pairs]
+    alts = [a for _, a in pairs]
+    *arrays, C_pad = banded.pack_batch(refs, alts, diags)
+    assert arrays[0].shape == (B, Ln)
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    P = READ_TO_HAPLOTYPE_PARAMS
+    params = (P.match, P.mismatch, P.gap_open, P.gap_extend)
+    got = banded.banded_sw(*t, params=params, C=C_pad)
+    want = banded.banded_sw_torch(*t, params=params, C=C_pad,
+                                  indel_init=False)
+    for name, g, w in zip(("bt", "colm", "lastrow", "edge"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    S = banded.slot_width(refs, alts)
+    before = banded.TB_LAUNCHES
+    slots = banded.sw_traceback(*got, t[2], overhang=OverhangStrategy.SOFTCLIP,
+                                S=S)
+    torch.cuda.synchronize()
+    assert banded.TB_LAUNCHES == before + 1
+    _hold_traceback(slots, banded.sw_traceback_torch(
+        *want, t[2], overhang=OverhangStrategy.SOFTCLIP, S=S))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overhang", [OverhangStrategy.SOFTCLIP,
+                                      OverhangStrategy.IGNORE])
+def test_traceback_kernel_matches_plain(cuda, overhang):
+    rng = np.random.default_rng(51)
+    pairs, diags = _sw_cases(rng, 70)
+    hap = pairs[0][0]                 # no base to align, none that matches
+    pairs += [(hap, b""), (hap, b"N" * 60)]
+    diags += [40, 40]
+    refs = [r for r, _ in pairs]
+    alts = [a for _, a in pairs]
+    *arrays, C_pad = banded.pack_batch(refs, alts, diags)
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    P = READ_TO_HAPLOTYPE_PARAMS
+    outs = banded.banded_sw(*t, params=(P.match, P.mismatch, P.gap_open,
+                                        P.gap_extend), C=C_pad)
+    S = banded.slot_width(refs, alts)
+    got = banded.sw_traceback(*outs, t[2], overhang=overhang, S=S)
+    want = banded.sw_traceback_torch(*outs, t[2], overhang=overhang, S=S)
+    assert (want[:, 0] == 0).any() and (want[:, 0] == 1).any()
+    _hold_traceback(got, want)
+
+
+@pytest.mark.gpu
+def test_banded_kernel_refuses_scores_past_its_keys(cuda):
+    *arrays, C_pad = banded.pack_batch([b"ACGT" * 20], [b"ACGT" * 5], [10])
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    with pytest.raises(ValueError, match="2\\^23"):
+        banded.banded_sw(*t, params=(10, -15, -30, -2 ** 16), C=C_pad)
+
+
+@pytest.mark.gpu
+def test_banded_batch_brings_back_only_the_slots(cuda, monkeypatch):
+    """On the card, sw_align_banded_batch moves one (B, S) int32 tensor to
+    the host: bt, colm, lastrow and edge stay on the card."""
+    rng = np.random.default_rng(52)
+    pairs, diags = _sw_cases(rng, 40)
+    moved = []
+
+    def spy(name, real):
+        def call(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            if name == "copy_":
+                src = args[0]
+                if self.device.type == "cpu" and src.device.type == "cuda":
+                    moved.append((tuple(src.shape), src.dtype))
+            elif self.device.type == "cuda" and not (
+                    isinstance(out, torch.Tensor) and out.device.type
+                    == "cuda"):
+                moved.append((tuple(self.shape), self.dtype))
+            return out
+        return call
+
+    for name in ("copy_", "cpu", "to", "numpy", "tolist", "item", "__int__"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            spy(name, getattr(torch.Tensor, name)))
+    before = banded.LAUNCHES, banded.TB_LAUNCHES
+    res = banded.sw_align_banded_batch(
+        pairs, READ_TO_HAPLOTYPE_PARAMS, overhang=OverhangStrategy.SOFTCLIP,
+        diagonals=diags, device=cuda)
+    monkeypatch.undo()
+    assert (banded.LAUNCHES, banded.TB_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    S = banded.slot_width([r for r, _ in pairs], [a for _, a in pairs])
+    assert moved == [((40, S), torch.int32)]
+    assert len(res) == 40 and any(r.fell_back for r in res)
 
 
 @pytest.mark.gpu

@@ -87,7 +87,7 @@ def test_realignment_identical_to_reference(region_likelihoods, monkeypatch,
     lik = _fresh(port_lik)
     before = banded.LAUNCHES
     batches, fallbacks = port_au.realign_reads_to_their_best_haplotype(
-        lik, "cpu")
+        lik, device="cpu")
     assert _summary(lik) == want
     assert len(want) > 0
     # the CPU runs the plain version: a batch, never a kernel launch
@@ -104,9 +104,35 @@ def test_banded_and_native_realignment_agree(region_likelihoods,
     for flag in ("0", "1"):
         monkeypatch.setenv("ROVACA_BANDED_REALIGN", flag)
         lik = _fresh(region_likelihoods[1])
-        port_au.realign_reads_to_their_best_haplotype(lik, "cpu")
+        port_au.realign_reads_to_their_best_haplotype(lik, device="cpu")
         runs.append(_summary(lik))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("banded_on", [False, True])
+def test_device_resolved_only_when_a_banded_batch_runs(region_likelihoods,
+                                                       monkeypatch,
+                                                       banded_on):
+    """No device given: the card, asked for only when the banded batch is
+    about to run. The gate off never asks; the gate on with no card
+    raises, and runs no plain version in its place."""
+    from rovaca_tpu_torch.utils import platform
+    asked = []
+
+    def no_card(index=None):
+        asked.append(index)
+        raise RuntimeError("no CUDA device")
+
+    monkeypatch.setattr(platform, "device", no_card)
+    monkeypatch.setenv("ROVACA_BANDED_REALIGN", "1" if banded_on else "0")
+    lik = _fresh(region_likelihoods[1])
+    if banded_on:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_au.realign_reads_to_their_best_haplotype(lik)
+        assert asked == [None]
+    else:
+        assert port_au.realign_reads_to_their_best_haplotype(lik) == (0, 0)
+        assert asked == []
 
 
 @pytest.mark.parametrize("value,on", [(None, False), ("0", False),
