@@ -31,12 +31,16 @@ exits non-zero:
    host memory (and its bytes), and, for the record, the copy of the whole
    backtrack band that the slots replaced.
 5. main path: a 1 Mb / 30x diploid corpus (the port's
-   tools.golden_e2e.generate, seed 424242) through ``rovaca_tpu_torch.cli
+   tools.golden_e2e.generate, seed 424242; its ref.fa and BAM payload
+   hashes must equal tests/golden_torch/MANIFEST.json's, so a stale corpus
+   is told apart from a port that diverges) through ``rovaca_tpu_torch.cli
    HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native`` on the
    same inputs. The cuda run must launch K1, as often as its scheduler
-   counted, and its VCF must match the native run's on (CHROM, POS, REF,
-   ALT, GT) with the other fields within golden_e2e's tolerances. Each K1
-   launch's (G, Lr, Lh, real cells) and its bound are printed.
+   counted. Its VCF is held to the native run's, and both to rovaca_tpu's
+   xla VCF of the corpus committed in tests/golden_torch/ (``1mb.vcf.xz``):
+   (CHROM, POS, REF, ALT, GT) identical, the other fields within
+   golden_e2e's tolerances. Each K1 launch's (G, Lr, Lh, real cells) and
+   its bound are printed.
 6. realignment path: the same corpus with ROVACA_BANDED_REALIGN=1 and the
    cuda engine. K3's DP and traceback kernels must each launch as often as
    ``stats["sw_launches"]`` counts, at least once; its VCF must match the
@@ -62,18 +66,38 @@ exits non-zero:
 11. two torch.distributed ranks (gloo, torchrun's environment) on the card,
    cuda engine: both exit 0 and launch K1, rank 0's merged VCF passes
    depth_masked_diff against phase 5's.
+12. GVCF path: the corpus with ``-e GVCF`` on the cuda engine. K1 must
+   launch, as often as the scheduler counted; the GVCF is held to
+   rovaca_tpu's committed ``1mb.g.vcf.xz`` (golden_e2e.diff with gvcf:
+   variant rows as above, every band row's END, GT, GQ, DP, MIN_DP and PL
+   exactly). Wall, card share, rows and band rows are printed.
+13. flows: every flow of tools.golden_flows.FLOWS (VCF, GVCF, banded VCF
+   and GVCF, BQSR, BED, dbSNP, --resume, two BAMs, -L, --pcr-indel-model
+   NONE, --gq-bands) on the 50 kb corpus committed in tests/golden_torch/
+   (its files' hashes equal to the manifest's), cuda engine, in this
+   process through ``cli.main``, each held to rovaca_tpu's committed output
+   for it (IDs included). Every run launches K1, as often as the scheduler
+   counted; the banded flows launch K3's DP and traceback as often as
+   ``stats["sw_launches"]`` counts, at least once, the others never; each
+   flow did what it is for (golden_flows.effect_problems: BED and -L calls
+   inside their spans, dbSNP IDs on the truth sites and not the decoy's
+   or the filtered record's, BQSR records not the plain run's, --resume the
+   straight run's records ending in the BGZF EOF block). BuildBamIndex and
+   IndexFeatureFile on the committed BAM and dbSNP VCF give the committed
+   .bai and .tbi byte for byte.
 
-Every kernel's counter is set to 0 just before each of phases 5-8 and 10
-and read just after; phases 9 and 11 run in child processes, whose
-schedulers' launch counts their summary lines print. The line before the
-last is the kernels' JSON summary: each kernel's launches on its path, its
-time and its plain version's at the timed shape (CUDA events on a stream
-held until the host has queued the call, so the card's time alone), and its
-bound there, the larger of its bytes over 3.35 TB/s and its operations over
-the peak rate of their type (PEAK_*), counting the work this run's data
-needs; no single PyTorch call computes any of the four
-functions, so ``library_ms`` is null. The last line is ``{"ok": true,
-"device": {...}}``. Nothing of jax or rovaca_tpu is imported.
+Every kernel's counter is set to 0 just before each of phases 5-8, 10, 12
+and each flow of 13, and read just after; phases 9 and 11 run in child
+processes, whose schedulers' launch counts their summary lines print. The
+line before the last is the kernels' JSON summary: each kernel's launches on
+its path (and on the GVCF path and the flows, summed), its time and its
+plain version's at the timed shape (CUDA events on a stream held until the
+host has queued the call, so the card's time alone), and its bound there,
+the larger of its bytes over 3.35 TB/s and its operations over the peak rate
+of their type (PEAK_*), counting the work this run's data needs; no single
+PyTorch call computes any of the four functions, so ``library_ms`` is null.
+The last line is ``{"ok": true, "device": {...}}``. Nothing of jax or
+rovaca_tpu is imported.
 """
 
 import concurrent.futures
@@ -106,8 +130,10 @@ DENSE_TIMED = (128, 256)
 SW_SHAPES = tuple(itertools.product((256, 512, 1024), (64, 1024)))
 SW_TIMED = (512, 1024)
 SW_ORACLE = 8          # alignments per shape also held to the python SW
-CORPUS = dict(genome_len=1_000_000, coverage=30, seed=424242)
 KERNELS = ("pairhmm_indexed", "pairhmm_dense", "sw_banded")
+# rovaca_tpu's xla outputs of the 1 Mb corpus (golden_flows.CORPUS_1MB),
+# committed in tests/golden_torch/
+REF_1MB_VCF, REF_1MB_GVCF = "1mb.vcf.xz", "1mb.g.vcf.xz"
 MIN_REGIONS = 200
 SHARDS = 4             # shards of the sharded steps and the dryrun
 # The H100 SXM's peaks (NVIDIA's data sheet at 700 W): HBM 3.35 TB/s, FP32
@@ -631,7 +657,7 @@ def phase_main_path(workdir):
     on the same inputs, which the later paths are held to as well."""
     import torch
     from rovaca_tpu_torch.pipeline import scheduler
-    from rovaca_tpu_torch.tools import golden_e2e
+    from rovaca_tpu_torch.tools import golden_e2e, golden_flows
 
     # warm-up on a small corpus: the host's native libraries build at
     # first use, and no timed run should pay for that
@@ -642,9 +668,14 @@ def phase_main_path(workdir):
           "warm-up run failed")
 
     t0 = time.perf_counter()
-    golden_e2e.generate(workdir, **CORPUS)
-    print(f"[e2e] corpus {CORPUS} generated in "
+    golden_e2e.generate(workdir, **golden_flows.CORPUS_1MB)
+    print(f"[e2e] corpus {golden_flows.CORPUS_1MB} generated in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    stale = golden_flows.corpus_1mb_problems(workdir)
+    check(not stale, f"the generated corpus is not the one the committed "
+          f"rovaca_tpu references were made from: {stale}")
+    print("[e2e] corpus hashes (ref.fa, BAM payload) equal the manifest's",
+          flush=True)
     bam = os.path.join(workdir, "sample.bam")
     ref = os.path.join(workdir, "ref.fa")
     runs = {}
@@ -698,8 +729,125 @@ def phase_main_path(workdir):
           f"{identical}", flush=True)
     rc = golden_e2e.diff(workdir)   # ours = cuda, ref = native
     check(rc == 0, "cuda VCF diverges from the native engine's")
+    for engine, out in (("cuda", "ours.vcf"), ("native", "ref.vcf")):
+        print(f"[e2e] {engine} VCF against rovaca_tpu's committed "
+              f"{REF_1MB_VCF}:", flush=True)
+        rc = golden_flows.diff_against(
+            os.path.join(workdir, out), REF_1MB_VCF,
+            os.path.join(workdir, f"rovaca_{engine}"), gvcf=False)
+        check(rc == 0, f"the {engine} VCF diverges from rovaca_tpu's")
     check_imports()
     return {"launches": launches, "wall_s": cu["wall_s"]}
+
+
+def _band_rows(path):
+    with open(path) as f:
+        return sum(line.split("\t", 5)[4] == "<NON_REF>" for line in f
+                   if not line.startswith("#"))
+
+
+def phase_gvcf_path(workdir):
+    """The 1 Mb corpus with ``-e GVCF`` on the cuda engine, held to
+    rovaca_tpu's committed GVCF, band rows included."""
+    import torch
+    from rovaca_tpu_torch.tools import golden_flows
+    out = os.path.join(workdir, "gvcf", "ours.g.vcf")
+    os.makedirs(os.path.dirname(out))
+    stats = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    rc = _hc(os.path.join(workdir, "sample.bam"),
+             os.path.join(workdir, "ref.fa"), out, "cuda", stats,
+             "-e", "GVCF")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(rc == 0, f"GVCF run exited {rc}")
+    _print_run("gvcf", "cuda", stats)
+    rows, bands = len(_records(out)), _band_rows(out)
+    print(f"[gvcf] rows={rows} band_rows={bands} K1 launches="
+          f"{counts['pairhmm_indexed']}; against rovaca_tpu's committed "
+          f"{REF_1MB_GVCF}:", flush=True)
+    check(counts["pairhmm_indexed"] == stats["launches"] > 0,
+          f"K1 counted {counts['pairhmm_indexed']} launches, the scheduler "
+          f"{stats['launches']}")
+    check(counts["sw_banded"] == 0, "the GVCF path ran the banded SW")
+    rc = golden_flows.diff_against(out, REF_1MB_GVCF,
+                                   os.path.dirname(out), gvcf=True)
+    check(rc == 0, "the cuda GVCF diverges from rovaca_tpu's")
+    check_imports()
+    return {"launches": stats["launches"], "wall_s": stats["wall_s"]}
+
+
+def phase_flows(workdir):
+    """Every flow of tools.golden_flows on the committed 50 kb corpus, cuda
+    engine, in this process, held to rovaca_tpu's committed output; the
+    index tools held to the committed .bai and .tbi byte for byte."""
+    import torch
+    from rovaca_tpu_torch import cli
+    from rovaca_tpu_torch.tools import golden_flows
+    bad = golden_flows.manifest_problems()
+    check(not bad, f"committed files differ from MANIFEST.json: {bad}")
+    golden = golden_flows.GOLDEN_DIR
+    workdir = os.path.join(workdir, "flows")
+    os.makedirs(workdir)
+    for tool, src, committed in (
+            ("BuildBamIndex", "sample.bam", "sample.bam.bai"),
+            ("IndexFeatureFile", "dbsnp.vcf.gz", "dbsnp.vcf.gz.tbi")):
+        out = os.path.join(workdir, committed)
+        check(cli.main([tool, "-i", os.path.join(golden, src), "-o", out])
+              == 0, f"{tool} failed")
+        with open(out, "rb") as a, open(os.path.join(golden, committed),
+                                        "rb") as b:
+            check(a.read() == b.read(), f"{tool}'s {committed} differs from "
+                  "the committed one")
+        print(f"[flows] {tool}: {committed} byte-identical to the "
+              "committed one", flush=True)
+    totals = dict.fromkeys(("pairhmm_indexed", "sw_banded", "sw_traceback"),
+                           0)
+    for name, flow in golden_flows.FLOWS.items():
+        runs = []
+
+        def run(argv):
+            stats = {}
+            runs.append(stats)
+            return cli.main(argv, stats=stats)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        try:
+            result = golden_flows.run_flow(run, name,
+                                           os.path.join(workdir, name),
+                                           "cuda")
+        except RuntimeError as exc:
+            raise PhaseError(str(exc)) from exc
+        torch.cuda.synchronize()
+        counts = read_counts()
+        k1 = [s["launches"] for s in runs]
+        sw = sum(s["sw_launches"] for s in runs)
+        print(f"[flows] {name}: runs={len(runs)} wall_s="
+              f"{sum(s['wall_s'] for s in runs):.3f} records="
+              f"{len(_records(result['output']))} K1 launches={k1} "
+              f"(counted {counts['pairhmm_indexed']}) K3 DP/traceback="
+              f"{counts['sw_banded']}/{counts['sw_traceback']} sw_launches="
+              f"{sw} sw_fallbacks={sum(s['sw_fallbacks'] for s in runs)}",
+              flush=True)
+        check(all(k > 0 for k in k1) and sum(k1) == counts["pairhmm_indexed"],
+              f"flow {name}: K1 launches {k1}, counted "
+              f"{counts['pairhmm_indexed']}")
+        banded = dict(flow.env).get("ROVACA_BANDED_REALIGN") == "1"
+        check(counts["sw_banded"] == counts["sw_traceback"] == sw
+              and (sw > 0) == banded,
+              f"flow {name}: K3 counted {counts['sw_banded']} DP and "
+              f"{counts['sw_traceback']} traceback launches, the caller {sw}")
+        check(golden_flows.diff_flow(name, result["output"],
+                                     os.path.join(workdir, name, "diff"))
+              == 0, f"flow {name} diverges from rovaca_tpu's output")
+        problems = golden_flows.effect_problems(name, result)
+        check(not problems, f"flow {name}: {problems}")
+        for key in totals:
+            totals[key] += counts[key]
+    check_imports()
+    return totals
 
 
 def phase_realign_path(workdir, default_wall_s):
@@ -1207,6 +1355,8 @@ def main():
             timed("--shards 2", phase_shards, workdir)
             timed("-t 2", phase_host_workers, workdir)
             timed("two ranks", phase_ranks, workdir)
+            gvcf = timed("GVCF path", phase_gvcf_path, workdir)
+            flows = timed("flows", phase_flows, workdir)
     except PhaseError as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1215,6 +1365,8 @@ def main():
          "source": "rovaca_tpu_torch/csrc/pairhmm_indexed.cu",
          "replaces": "rovaca_tpu/ops/pairhmm/indexed.py:74",
          "launches": main_path["launches"],
+         "gvcf_launches": gvcf["launches"],
+         "flows_launches": flows["pairhmm_indexed"],
          "device_list_launches": device_list["pairhmm_indexed"],
          "max_abs_err": k1["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
@@ -1238,6 +1390,7 @@ def main():
          "source": "rovaca_tpu_torch/csrc/sw_banded.cu",
          "replaces": "rovaca_tpu/ops/sw/banded.py:242",
          "launches": realign["launches"],
+         "flows_launches": flows["sw_banded"],
          "device_list_launches": device_list["sw_banded"],
          "max_abs_err": k3["max_abs_err"],
          "err_of": "bt, colm, lastrow and edge (integers, bit-equal)",
@@ -1255,6 +1408,7 @@ def main():
          "replaces_what": "_traceback_band, host code run on _banded_call's "
                           "outputs (not a Pallas kernel)",
          "launches": realign["tb_launches"],
+         "flows_launches": flows["sw_traceback"],
          "device_list_launches": device_list["sw_traceback"],
          "max_abs_err": k3["tb_err"],
          "err_of": "packed slots (integers, equal slot for slot)",

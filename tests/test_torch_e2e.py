@@ -231,4 +231,7 @@ def test_index_tools(standard_case):
     assert port_cli(["HaplotypeCaller", "-i", bam, "-r", fasta, "-o",
                      vcf_gz, "--pairhmm-engine", "native"]) == 0
     assert port_cli(["IndexFeatureFile", "-i", vcf_gz]) == 0
-    assert os.path.getsize(vcf_gz + ".tbi") > 0
+    assert jax_cli(["IndexFeatureFile", "-i", vcf_gz, "-o",
+                    str(tmp / "ref.tbi")]) == 0
+    with open(vcf_gz + ".tbi", "rb") as a, open(tmp / "ref.tbi", "rb") as b:
+        assert a.read() == b.read()

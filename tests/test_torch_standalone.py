@@ -9,10 +9,13 @@ layer held to rovaca_tpu's, on the CPU.
 - Two processes that build the same native library at once both load it.
 - The flows that run through the port's own copies of the host layer
   (BQSR, BED with padding, dbSNP IDs, --resume on a truncated .vcf.gz, two
-  contigs) give, with ``--pairhmm-engine torch``, the records of
-  ``rovaca_tpu.cli --pairhmm-engine xla`` on the same inputs: (CHROM, POS,
-  REF, ALT, GT) and IDs identical, the other fields within golden_e2e's
-  QUAL_TOL, FLOAT_TOL and PL_TOL.
+  contigs, two BAMs, and the flags -L, --gq-bands, --max-mnp-distance,
+  --pcr-indel-model, --sample-name, --max-reads-depth, --assemble-output)
+  give, with ``--pairhmm-engine torch``, the records of ``rovaca_tpu.cli
+  --pairhmm-engine xla`` on the same inputs: (CHROM, POS, REF, ALT, GT) and
+  IDs identical, the other fields within golden_e2e's QUAL_TOL, FLOAT_TOL
+  and PL_TOL, GVCF band rows identical; the --assemble-output dumps are
+  equal as text.
 """
 
 import ast
@@ -29,7 +32,7 @@ import pytest
 from rovaca_tpu.cli import main as jax_cli
 from rovaca_tpu_torch.cli import main as port_cli
 from rovaca_tpu_torch.io import bgzf
-from rovaca_tpu_torch.tools import golden_e2e
+from rovaca_tpu_torch.tools import golden_e2e, golden_flows
 
 import simdata
 from test_bqsr import REPORT
@@ -196,13 +199,17 @@ def _dbsnp(tmp, truth):
 
 
 def _run_both(fasta, bam, out_dir, extra, name="out.vcf"):
-    """The port's CLI (torch) and rovaca_tpu's (xla) on the same inputs:
-    out_dir/ours_<name>, out_dir/ref_<name>."""
+    """The port's CLI (torch) and rovaca_tpu's (xla) on the same inputs
+    (``bam`` one path or a list): out_dir/ours_<name>, out_dir/ref_<name>.
+    "{side}" in an argument of ``extra`` becomes "ours" or "ref"."""
     ours, ref = str(out_dir / f"ours_{name}"), str(out_dir / f"ref_{name}")
-    assert port_cli(["HaplotypeCaller", "-i", bam, "-r", fasta, "-o", ours,
-                     "--pairhmm-engine", "torch", *extra]) == 0
-    assert jax_cli(["HaplotypeCaller", "-i", bam, "-r", fasta, "-o", ref,
-                    "--pairhmm-engine", "xla", *extra]) == 0
+    inputs = [x for b in ([bam] if isinstance(bam, str) else bam)
+              for x in ("-i", b)]
+    for cli, engine, side, out in ((port_cli, "torch", "ours", ours),
+                                   (jax_cli, "xla", "ref", ref)):
+        assert cli(["HaplotypeCaller", *inputs, "-r", fasta, "-o", out,
+                    "--pairhmm-engine", engine,
+                    *(a.format(side=side) for a in extra)]) == 0
     return ours, ref
 
 
@@ -228,11 +235,25 @@ def _resume(fasta, bam, out_dir, cli, engine, tag):
     return body(full), body(part)
 
 
+# flow -> arguments of both runs; "two_bams" and "two_contigs" change the
+# inputs, "resume" the procedure
+FLAG_FLOWS = {
+    "interval": ["-L", "chr20:500-1600"],
+    "gq_bands": ["-e", "GVCF", "--gq-bands", "5,20,60"],
+    "max_mnp_distance": ["--max-mnp-distance", "2"],
+    "pcr_indel_model": ["--pcr-indel-model", "NONE"],
+    "sample_name": ["--sample-name", "NA24385"],
+    "max_reads_depth": ["--max-reads-depth", "8"],
+    "assemble_output": ["--assemble-output", "{side}_assembly.txt"],
+}
+
+
 @pytest.mark.parametrize("flow", ["bqsr", "bed", "dbsnp", "resume",
-                                  "two_contigs"])
+                                  "two_contigs", "two_bams", *FLAG_FLOWS])
 def test_flow_matches_reference(standard_case, tmp_path, flow):
     tmp, fasta, bam, truth = standard_case
-    extra = []
+    extra = FLAG_FLOWS.get(flow, [])
+    gvcf = "GVCF" in extra
     if flow == "bqsr":
         table = tmp_path / "recal.table"
         table.write_text(REPORT)
@@ -245,6 +266,14 @@ def test_flow_matches_reference(standard_case, tmp_path, flow):
         extra = ["-d", _dbsnp(tmp_path, truth)]
     elif flow == "two_contigs":
         fasta, bam = _two_contig_case(tmp_path)
+    elif flow == "two_bams":
+        bam = golden_flows.split_bam(bam, str(tmp_path))
+    elif flow == "interval":       # indexed, so -L seeks
+        shutil.copy(bam, tmp_path / "indexed.bam")
+        bam = str(tmp_path / "indexed.bam")
+        assert port_cli(["BuildBamIndex", "-i", bam]) == 0
+    elif flow == "assemble_output":
+        extra = [extra[0], str(tmp_path / extra[1])]
 
     if flow == "resume":
         full_p, ours = _resume(fasta, bam, tmp_path, port_cli, "torch",
@@ -255,17 +284,31 @@ def test_flow_matches_reference(standard_case, tmp_path, flow):
         (tmp_path / "ours.vcf").write_text(header + "".join(ours))
         (tmp_path / "ref.vcf").write_text(header + "".join(ref))
     else:
-        ours, ref = _run_both(fasta, bam, tmp_path, extra)
-        shutil.copy(ours, tmp_path / "ours.vcf")
-        shutil.copy(ref, tmp_path / "ref.vcf")
-    records, _ = golden_e2e.parse_vcf(str(tmp_path / "ours.vcf"))
+        suffix = ".g.vcf" if gvcf else ".vcf"
+        ours, ref = _run_both(fasta, bam, tmp_path, extra, "out" + suffix)
+        shutil.copy(ours, tmp_path / f"ours{suffix}")
+        shutil.copy(ref, tmp_path / f"ref{suffix}")
+    records, _ = golden_e2e.parse_vcf(
+        str(tmp_path / ("ours.g.vcf" if gvcf else "ours.vcf")))
     assert records
+    positions = {p for (_, p, _, _) in records}
     if flow == "bed":      # only the targeted variants are called
-        assert {p for (_, p, _, _) in records} <= set(range(460, 1661))
+        assert positions <= set(range(460, 1661))
+    elif flow == "interval":
+        assert positions <= set(range(500, 1601)) and 601 in positions
     elif flow == "dbsnp":
         # the het SNP's ID; neither the decoy allele's nor the filtered one's
         ids = {r["id"] for r in records.values() if r["id"] != "."}
         assert "rs1000" in ids and not ids & {"rs1001", "rs1003"}, ids
     elif flow == "two_contigs":
         assert {c for (c, _, _, _) in records} == {"chrA", "chrB"}
-    assert golden_e2e.diff(str(tmp_path), check_id=True) == 0
+    elif flow == "sample_name":
+        for side in ("ours", "ref"):
+            with open(tmp_path / f"{side}.vcf") as fh:
+                header = [ln for ln in fh if ln.startswith("#CHROM")]
+            assert header[0].rstrip("\n").endswith("\tNA24385"), side
+    elif flow == "assemble_output":
+        dumps = [(tmp_path / f"{side}_assembly.txt").read_text()
+                 for side in ("ours", "ref")]
+        assert dumps[0] and dumps[0] == dumps[1]
+    assert golden_e2e.diff(str(tmp_path), gvcf=gvcf, check_id=True) == 0
