@@ -31,9 +31,10 @@ exits non-zero:
    host memory (and its bytes), and, for the record, the copy of the whole
    backtrack band that the slots replaced.
 5. main path: a 1 Mb / 30x diploid corpus (the port's
-   tools.golden_e2e.generate, seed 424242; its ref.fa and BAM payload
-   hashes must equal tests/golden_torch/MANIFEST.json's, so a stale corpus
-   is told apart from a port that diverges) through ``rovaca_tpu_torch.cli
+   tools.golden_e2e.generate, seed 424242, run as ``golden_e2e gen`` in a
+   child process, see below; its ref.fa and BAM payload hashes must equal
+   tests/golden_torch/MANIFEST.json's, so a stale corpus is told apart
+   from a port that diverges) through ``rovaca_tpu_torch.cli
    HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native`` on the
    same inputs. The cuda run must launch K1, as often as its scheduler
    counted. Its VCF is held to the native run's, and both to rovaca_tpu's
@@ -85,10 +86,34 @@ exits non-zero:
    straight run's records ending in the BGZF EOF block). BuildBamIndex and
    IndexFeatureFile on the committed BAM and dbSNP VCF give the committed
    .bai and .tbi byte for byte.
+14. measure, on phase 5's corpus (not generated again):
+   (a) tools.race_e2e.run_race with the contenders cuda, native and
+   cuda_gvcf, one unrecorded warm-up run and RACE_ROUNDS rounds of
+   ``python -m rovaca_tpu_torch.cli`` processes (RACE_MIN_ROUNDS when, at
+   the pace of this run's phases 5 and 12, more would end after
+   RACE_END_BY_S): each contender's runs, median, (max - min) / median,
+   own walls, card share and reads/s, every output ``RESULT: MATCH``
+   against rovaca_tpu's committed 1 Mb VCF or GVCF, K1 launched in every
+   cuda run and in no native one; (b) tools.host_profile on the cuda
+   engine for the VCF and the GVCF (seconds by layer, the profiled wall
+   against (a)'s median), and a torch.profiler run of the VCF (kernel time
+   by name, the card's busy share); (c) tools.kernel_bench's JSON line (K2
+   and K1 on bench.py's batch; the CPU baseline of one core and of every
+   core at once, measured on this host); (d) tools.accuracy_eval.score_calls
+   of (a)'s cuda VCF against the corpus's truth.txt (379 variants), the
+   native VCF scoring the same.
 
-Every kernel's counter is set to 0 just before each of phases 5-8, 10, 12
-and each flow of 13, and read just after; phases 9 and 11 run in child
-processes, whose schedulers' launch counts their summary lines print. The
+Order: the corpus of phase 5 is generated by a child process started after
+phase 0. Beside it run only work that reports no time the kernels' line or
+a measurement takes: phase 1, phase 2 at K1's untimed G 1024 shapes (their
+own lines mark their times as taken on a shared host), phase 8 and phase 13.
+The script then waits for the corpus and runs the rest of phase 2 and
+phases 3-7, 9-12 and 14 with the host to itself.
+
+Every kernel's counter is set to 0 just before each of phases 5-8, 10, 12,
+each flow of 13 and each in-process run of 14 (b), and read just after;
+phases 9, 11 and 14 (a) run in child processes, whose schedulers' launch
+counts their summary lines print. The
 line before the last is the kernels' JSON summary: each kernel's launches on
 its path (and on the GVCF path and the flows, summed), its time and its
 plain version's at the timed shape (CUDA events on a stream held until the
@@ -122,6 +147,9 @@ SHAPES = tuple(itertools.product((128, 256), (256, 512, 1024), (64, 1024)))
 TIMED_SHAPE = (128, 256, 1024)   # the shape reported in the JSON summary
 # the plain version takes 4-35 s a call at the full launches: one run
 PLAIN_ONCE = {s for s in SHAPES if s[2] == 1024}
+# K1's shapes held while the corpus is generated: the untimed G 1024 ones
+BESIDE_CORPUS = tuple(s for s in SHAPES
+                      if s in PLAIN_ONCE and s != TIMED_SHAPE)
 # K2: (Lr, Lh) at a dense 8 x 8 grid of tiles, as call_region's regions give
 DENSE_SHAPES = tuple(itertools.product((128, 256), (256, 512)))
 DENSE_TILES = 8
@@ -136,6 +164,21 @@ KERNELS = ("pairhmm_indexed", "pairhmm_dense", "sw_banded")
 REF_1MB_VCF, REF_1MB_GVCF = "1mb.vcf.xz", "1mb.g.vcf.xz"
 MIN_REGIONS = 200
 SHARDS = 4             # shards of the sharded steps and the dryrun
+# phase 14: the race's contenders and rounds after its warm-up. A round is
+# predicted to take the in-process walls of phases 5 and 12 plus
+# CLI_START_S a process (torch's start-up, 8-13 s on the H100's host),
+# and what follows the race REST_ROUNDS rounds (1.1-1.7 on one H100 80GB
+# HBM3 at 700 W). If RACE_ROUNDS would end the script after RACE_END_BY_S
+# (it must end within 1200 s), RACE_MIN_ROUNDS are run. The 1 Mb corpus's
+# truth variants.
+RACE_CONTENDERS = ("cuda", "native", "cuda_gvcf")
+RACE_ROUNDS = 3
+RACE_MIN_ROUNDS = 2
+RACE_END_BY_S = 1150
+CLI_START_S = 10
+REST_ROUNDS = 1.75
+TRUTH_1MB = 379
+STARTED = time.perf_counter()
 # The H100 SXM's peaks (NVIDIA's data sheet at 700 W): HBM 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s; int32 64 ops a clock an SM (CUDA
 # C++ Programming Guide, arithmetic throughput for compute capability 9.0)
@@ -315,24 +358,29 @@ def compare(got, want):
             bool(same_rescue), bool(np.all(got[pad] == 0)))
 
 
-def phase_kernels(shapes=SHAPES):
-    """K1 against its plain version."""
+def phase_kernels(shapes=SHAPES, note=""):
+    """K1 against its plain version at ``shapes``, a subset of SHAPES
+    (every shape's batch is drawn in SHAPES' order from one seed, so a
+    shape's batch is the same whichever subset is run); ``note`` ends each
+    shape's line."""
     import numpy as np
     from rovaca_tpu_torch.ops.pairhmm import compact, indexed
     from rovaca_tpu_torch.utils import platform
     dev = platform.device()
     rng = np.random.default_rng(20261016)
     summary = {"max_abs_err": 0.0}
-    for Lr, Lh, G in shapes:
+    for Lr, Lh, G in SHAPES:
         arrays, cells = make_batch(rng, Lr, Lh, G)
+        if (Lr, Lh, G) not in shapes:
+            continue
         t = compact.to_device(arrays, dev)
         k_ms, k_out = time_ms(lambda: indexed.pairhmm_indexed_compact(*t))
         p_runs = 1 if (Lr, Lh, G) in PLAIN_ONCE else RUNS
         p_ms, p_out = time_ms(
             lambda: indexed.pairhmm_indexed_compact_torch(*t), p_runs)
         log_err = _check_forward(k_out, p_out, f"K1 {(Lr, Lh, G)}",
-                                 f"[K1] Lr={Lr} Lh={Lh} G={G}", k_ms, p_ms,
-                                 p_runs, cells)
+                                 f"[K1] Lr={Lr} Lh={Lh} G={G}{note}", k_ms,
+                                 p_ms, p_runs, cells)
         summary["max_abs_err"] = max(summary["max_abs_err"], log_err)
         if (Lr, Lh, G) == TIMED_SHAPE:
             bound_ms, bound_by = pairhmm_bound((*t, k_out), cells)
@@ -652,6 +700,39 @@ def _print_run(tag, engine, stats):
           f"sw_fallbacks={stats['sw_fallbacks']}", flush=True)
 
 
+def start_corpus(workdir):
+    """Start generating the 1 Mb corpus into ``workdir`` in a child process
+    (``golden_e2e gen``): (the process, its start time)."""
+    from rovaca_tpu_torch.tools import golden_flows
+    c = golden_flows.CORPUS_1MB
+    cmd = [sys.executable, "-m", "rovaca_tpu_torch.tools.golden_e2e", "gen",
+           workdir, str(c["genome_len"]), str(c["coverage"]), str(c["seed"])]
+    with open(os.path.join(workdir, "corpus_gen.log"), "w") as log:
+        return (subprocess.Popen(cmd, env=_cli_env(), stdout=log,
+                                 stderr=subprocess.STDOUT),
+                time.perf_counter())
+
+
+def phase_corpus(workdir, gen):
+    """Wait for start_corpus's child ``gen`` and check the corpus's hashes
+    against the manifest's."""
+    from rovaca_tpu_torch.tools import golden_flows
+    proc, started = gen
+    t0 = time.perf_counter()
+    proc.wait(timeout=900)
+    with open(os.path.join(workdir, "corpus_gen.log")) as log:
+        check(proc.returncode == 0, f"corpus generation exited "
+              f"{proc.returncode}: {log.read()[-2000:]}")
+    print(f"[e2e] corpus {golden_flows.CORPUS_1MB} generated in a child "
+          f"process in {time.perf_counter() - started:.1f}s; waited "
+          f"{time.perf_counter() - t0:.1f}s for it here", flush=True)
+    stale = golden_flows.corpus_1mb_problems(workdir)
+    check(not stale, f"the generated corpus is not the one the committed "
+          f"rovaca_tpu references were made from: {stale}")
+    print("[e2e] corpus hashes (ref.fa, BAM payload) equal the manifest's",
+          flush=True)
+
+
 def phase_main_path(workdir):
     """The default VCF run on the cuda engine (K1), then the native engine's
     on the same inputs, which the later paths are held to as well."""
@@ -667,15 +748,6 @@ def phase_main_path(workdir):
               os.path.join(warm, "out.vcf"), "cuda", {}) == 0,
           "warm-up run failed")
 
-    t0 = time.perf_counter()
-    golden_e2e.generate(workdir, **golden_flows.CORPUS_1MB)
-    print(f"[e2e] corpus {golden_flows.CORPUS_1MB} generated in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    stale = golden_flows.corpus_1mb_problems(workdir)
-    check(not stale, f"the generated corpus is not the one the committed "
-          f"rovaca_tpu references were made from: {stale}")
-    print("[e2e] corpus hashes (ref.fa, BAM payload) equal the manifest's",
-          flush=True)
     bam = os.path.join(workdir, "sample.bam")
     ref = os.path.join(workdir, "ref.fa")
     runs = {}
@@ -737,7 +809,8 @@ def phase_main_path(workdir):
             os.path.join(workdir, f"rovaca_{engine}"), gvcf=False)
         check(rc == 0, f"the {engine} VCF diverges from rovaca_tpu's")
     check_imports()
-    return {"launches": launches, "wall_s": cu["wall_s"]}
+    return {"launches": launches, "wall_s": cu["wall_s"],
+            "native_wall_s": runs["native"][0]["wall_s"]}
 
 
 def _band_rows(path):
@@ -1319,6 +1392,142 @@ def phase_ranks(workdir):
     return {"wall_s": [e[2] for e in ends]}
 
 
+def _print_race(race):
+    """One line a contender of a race_e2e.run_race result."""
+    for name, c in race["contenders"].items():
+        print(f"[measure] race {name}: runs_s="
+              f"{[round(x, 3) for x in c['runs_s']]} median_s="
+              f"{c['wall_s']:.3f} spread=(max-min)/median="
+              f"{c['spread_rel']:.4f} own_s={c['own_s']} own_median_s="
+              f"{c['own_median_s']:.3f} cpu_s="
+              f"{[round(x, 3) for x in c['cpu_s']]} card_s={c['card_s']} "
+              f"card_share={c['card_share']:.6f} K1 launches="
+              f"{c['launches']} reads_per_s={c['reads_per_s']:.1f}; "
+              f"against {race['held_to']}: {c['diff']}", flush=True)
+
+
+def _profile(workdir, gvcf, race):
+    """host_profile.profile_run of the corpus on the cuda engine, the
+    counts set to 0 just before it and read just after."""
+    import torch
+    from rovaca_tpu_torch.tools import host_profile
+    mode = "GVCF" if gvcf else "VCF"
+    torch.cuda.synchronize()
+    reset_counts()
+    res = host_profile.profile_run(
+        os.path.join(workdir, "sample.bam"), os.path.join(workdir, "ref.fa"),
+        os.path.join(workdir, "race", f"profile_{mode}.vcf"), "cuda", gvcf,
+        unprofiled=False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for line in host_profile.report_lines(res):
+        print(line.replace("[profile]", f"[measure] profile {mode}"),
+              flush=True)
+    c = race["contenders"]["cuda_gvcf" if gvcf else "cuda"]
+    print(f"[measure] profile {mode}: profiled wall {res['wall_s']:.3f}s "
+          f"against the race's median own wall {c['own_median_s']:.3f}s "
+          f"({res['wall_s'] / c['own_median_s']:.3f}x: the profiler's "
+          f"overhead, with one prep thread against two); K1 launches "
+          f"counted {counts['pairhmm_indexed']} over its warm-up and "
+          f"profiled runs, {res['stats']['launches']} in the profiled one",
+          flush=True)
+    check(res["stats"]["launches"] > 0
+          and counts["pairhmm_indexed"] >= res["stats"]["launches"],
+          f"profile {mode}: K1 counted {counts['pairhmm_indexed']}, the "
+          f"profiled run {res['stats']['launches']}")
+    named = sum(v for k, v in res["rows"].items() if k != "other")
+    check(named >= 0.9 * res["profiled_s"], f"profile {mode}: the layers "
+          f"take {named:.3f} of {res['profiled_s']:.3f}s")
+    return res
+
+
+def race_rounds(walls):
+    """RACE_ROUNDS, or RACE_MIN_ROUNDS when the race at the pace of
+    ``walls`` (the in-process walls of the contenders' runs earlier in this
+    script) and what follows it would end after RACE_END_BY_S."""
+    rnd = sum(walls.values()) + CLI_START_S * len(walls)
+    warm = walls[RACE_CONTENDERS[0]] + CLI_START_S
+    end = (time.perf_counter() - STARTED + warm
+           + (RACE_ROUNDS + REST_ROUNDS) * rnd)
+    n = RACE_ROUNDS if end <= RACE_END_BY_S else RACE_MIN_ROUNDS
+    print(f"[measure] race rounds: {n} (a round predicted at {rnd:.1f}s; "
+          f"{RACE_ROUNDS} would end the script at ~{end:.0f}s of "
+          f"{RACE_END_BY_S}s)", flush=True)
+    return n
+
+
+def phase_measure(workdir, walls):
+    """(a) race_e2e on the 1 Mb corpus, (b) host_profile of its VCF and
+    GVCF runs and a torch.profiler run, (c) kernel_bench, (d)
+    accuracy_eval.score_calls of the race's outputs. ``walls``: see
+    race_rounds."""
+    import torch
+    from rovaca_tpu_torch.tools import (accuracy_eval, host_profile,
+                                        kernel_bench, race_e2e)
+    race = race_e2e.run_race(
+        workdir, os.path.join(workdir, "race"), RACE_CONTENDERS,
+        race_rounds(walls),
+        log=lambda line: print(line.replace("[race]", "[measure] race"),
+                               flush=True))
+    _print_race(race)
+    check(race["held_to"] == "rovaca_tpu's committed output",
+          f"the race's outputs were held to {race['held_to']}")
+    for name, c in race["contenders"].items():
+        check(c["ok"] and c["diff"] == "RESULT: MATCH",
+              f"race {name}: {c['diff']}")
+        cuda = race_e2e.CONTENDERS[name][0] == "cuda"
+        check(all((n > 0) == cuda for n in c["launches"]),
+              f"race {name}: K1 launches {c['launches']}")
+
+    profiles = {gvcf: _profile(workdir, gvcf, race) for gvcf in (False,
+                                                                  True)}
+    torch.cuda.synchronize()
+    reset_counts()
+    tp = host_profile.torch_profile_run(
+        os.path.join(workdir, "sample.bam"), os.path.join(workdir, "ref.fa"),
+        os.path.join(workdir, "race", "torch_profile.vcf"), "cuda", False)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    busy = tp["card_busy_s"]
+    print(f"[measure] torch.profiler VCF run: wall {tp['wall_s']:.3f}s "
+          f"({tp['wall_s'] / race['contenders']['cuda']['own_median_s']:.3f}"
+          f"x the race's median own wall), card busy "
+          f"{busy if isinstance(busy, str) else f'{busy:.6f}s'}, share "
+          f"{tp['card_busy_share']}; K1 launches "
+          f"{counts['pairhmm_indexed']} (the run's {tp['stats']['launches']})",
+          flush=True)
+    for name, k in sorted(tp["kernels"].items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"[measure]   {k['ms']:10.4f} ms x{k['count']:<5} {name}",
+              flush=True)
+    check(counts["pairhmm_indexed"] == tp["stats"]["launches"] > 0,
+          f"torch.profiler run: K1 counted {counts['pairhmm_indexed']}, the "
+          f"scheduler {tp['stats']['launches']}")
+
+    kb = kernel_bench.run()
+    print(json.dumps(kb), flush=True)
+    check(kb["value"] > 0 and kb["device"] == torch.cuda.get_device_name(0),
+          f"kernel_bench gave {kb['value']} on {kb['device']}")
+
+    scores = {}
+    for name in ("cuda", "native"):
+        scores[name] = accuracy_eval.score_calls(
+            os.path.join(workdir, "race", f"{name}.vcf"),
+            os.path.join(workdir, "truth.txt"),
+            os.path.join(workdir, "ref.fa"))
+        sc = scores[name]
+        print(f"[measure] accuracy {name}: recall={sc['recall']:.4f} "
+              f"({sc['tp']}/{sc['truth']}) precision={sc['precision']:.4f} "
+              f"(FP={sc['fp']}) genotype_concordance="
+              f"{sc['genotype_concordance']:.4f}", flush=True)
+    check(scores["cuda"]["truth"] == TRUTH_1MB,
+          f"{scores['cuda']['truth']} truth variants, not {TRUTH_1MB}")
+    check(scores["cuda"] == scores["native"],
+          "the cuda VCF scores differently from the native VCF")
+    check_imports()
+    return {"race": race, "profiles": profiles, "torch_profiler": tp,
+            "kernel_bench": kb, "accuracy": scores}
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1342,21 +1551,41 @@ def main():
     sys.path.insert(0, REPO)
     try:
         timed("card", phase_card)
-        timed("build", phase_build)
-        k1 = timed("K1 vs plain", phase_kernels)
-        k2 = timed("K2 vs plain", phase_dense)
-        k3 = timed("K3 vs plain", phase_sw)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            gen = start_corpus(workdir)
+            try:
+                # beside the corpus's generation: nothing that times what
+                # the kernels' line or phase 14 reports
+                timed("build", phase_build)
+                k1_beside = timed(
+                    "K1 vs plain, untimed G 1024 shapes", phase_kernels,
+                    BESIDE_CORPUS, " (beside the corpus generation: times "
+                    "taken on a shared host)")
+                device_list = timed("device-list path", phase_device_list)
+                flows = timed("flows", phase_flows, workdir)
+                timed("corpus", phase_corpus, workdir, gen)
+            finally:
+                if gen[0].poll() is None:    # a phase before it failed
+                    gen[0].kill()
+                    gen[0].wait()
+            k1 = timed("K1 vs plain", phase_kernels,
+                       [s for s in SHAPES if s not in BESIDE_CORPUS])
+            k1["max_abs_err"] = max(k1["max_abs_err"],
+                                    k1_beside["max_abs_err"])
+            k2 = timed("K2 vs plain", phase_dense)
+            k3 = timed("K3 vs plain", phase_sw)
             main_path = timed("main path", phase_main_path, workdir)
             realign = timed("realignment path", phase_realign_path, workdir,
                             main_path["wall_s"])
             region = timed("region path", phase_region_path, workdir)
-            device_list = timed("device-list path", phase_device_list)
             timed("--shards 2", phase_shards, workdir)
             timed("-t 2", phase_host_workers, workdir)
             timed("two ranks", phase_ranks, workdir)
             gvcf = timed("GVCF path", phase_gvcf_path, workdir)
-            flows = timed("flows", phase_flows, workdir)
+            timed("measure", phase_measure, workdir, {
+                "cuda": main_path["wall_s"],
+                "native": main_path["native_wall_s"],
+                "cuda_gvcf": gvcf["wall_s"]})
     except PhaseError as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1

@@ -17,8 +17,10 @@ the same relative paths. Nothing here imports jax or rovaca_tpu.
 - ``parallel``: ``--shards``, ``-t`` workers, ``torch.distributed`` ranks
   and the sharded K1/K2 steps over a device list.
 - ``native``: the g++ libraries, built at first use into ``build/native/``.
-- ``tools``: the corpus generator and the VCF diffs (``golden_e2e``,
-  ``race_e2e``).
+- ``tools``: the corpus generator, the VCF diffs and the measuring tools
+  (``golden_e2e``, ``race_e2e``, ``host_profile``, ``kernel_bench``,
+  ``scaling_bench``, ``accuracy_eval``), each ``python -m
+  rovaca_tpu_torch.tools.<name>``.
 - ``cli``: ``python -m rovaca_tpu_torch.cli HaplotypeCaller ...``;
   ``entry``: the counterparts of ``__graft_entry__``'s entry points.
 """

@@ -163,9 +163,9 @@ def run_haplotype_caller(argv, stats=None):
     if stats is not None:
         stats.update(result, wall_s=dt)
     print(f"[rovaca_tpu_torch] {result['reads']} reads, {result['regions']} "
-          f"regions, {result['calls']} records in {dt:.1f}s "
+          f"regions, {result['calls']} records in {dt:.3f}s "
           f"({result['launches']} launches, "
-          f"{result['device_ms'] / 1e3:.2f}s on the card; banded SW "
+          f"{result['device_ms'] / 1e3:.4f}s on the card; banded SW "
           f"{result['sw_launches']} launches, {result['sw_fallbacks']} "
           f"fallbacks)", file=sys.stderr)
     return 0

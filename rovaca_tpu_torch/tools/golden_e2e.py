@@ -1,11 +1,23 @@
-"""Corpus generation and the record-level VCF diff.
+"""Corpus generation, the two callers' runs and the record-level VCF diff.
 
-Counterpart of scripts/golden_e2e.py's ``generate`` and ``diff`` (the
-reference-binary runners stay there): ``generate`` writes a synthetic
+Counterpart of scripts/golden_e2e.py: ``generate`` writes a synthetic
 diploid genome, a coordinate-sorted paired-end BAM with its .bai and the
 truth list, byte for byte as scripts/golden_e2e.py does for the same seed;
-``diff`` holds ``ours.vcf`` to ``ref.vcf`` (or the .g.vcf pair) in one
-directory.
+``run_ours`` runs this package's CLI into ``ours.vcf`` (or ``ours.g.vcf``);
+``run_ref`` runs the reference binary (REF_BIN, built by
+refshim/build_harness.sh) into ``ref.vcf`` when it exists, and otherwise
+stops with one line; ``diff`` holds ``ours.vcf`` to ``ref.vcf`` (or the
+.g.vcf pair) in one directory.
+
+    python -m rovaca_tpu_torch.tools.golden_e2e gen  <dir> [len] [cov] [seed]
+    python -m rovaca_tpu_torch.tools.golden_e2e ours <dir> [--gvcf]
+        [--engine auto|cuda|torch|native]
+    python -m rovaca_tpu_torch.tools.golden_e2e ref  <dir> [--gvcf]
+    python -m rovaca_tpu_torch.tools.golden_e2e diff <dir> [--gvcf]
+        [--check-id]
+
+``ours`` runs on the card by default (auto = cuda, which fails without
+one); ``--engine native`` or ``torch`` runs on the CPU.
 
 Comparison semantics (reference record model:
 src/haplotypecaller/genotype/utils/adapter_utils.cpp:253-312):
@@ -15,9 +27,16 @@ src/haplotypecaller/genotype/utils/adapter_utils.cpp:253-312):
     (GT:AD:DP:GQ:PL) values within numeric tolerance.
 """
 
+import argparse
 import os
+import subprocess
+import sys
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+REF_BIN = os.path.join(REPO, ".refbuild", "ref", "build-dev", "bin", "rovaca")
 
 QUAL_TOL = 0.51          # QUAL is GATK-rounded to 2dp; allow rounding skew
 FLOAT_TOL = 0.051        # INFO floats printed with %.3f-ish precision
@@ -90,6 +109,55 @@ def generate(outdir, genome_len=200_000, coverage=30, seed=20260819):
             f.write(f"{contig}\t{pos + 1}\t{r}\t{a}\t{zyg}\n")
     print(f"generated {genome_len}bp / {len(reads)} reads"
           f" / {len(truth)} truth variants -> {outdir}")
+
+
+# --------------------------------------------------------------------------
+def run_ours(outdir, gvcf=False, engine="auto"):
+    """This package's HaplotypeCaller on ``outdir``'s corpus, in process."""
+    from .. import cli
+    out = os.path.join(outdir, "ours.g.vcf" if gvcf else "ours.vcf")
+    argv = ["HaplotypeCaller",
+            "-i", os.path.join(outdir, "sample.bam"),
+            "-r", os.path.join(outdir, "ref.fa"),
+            "-o", out, "--pairhmm-engine", engine]
+    if gvcf:
+        argv += ["-e", "GVCF"]
+    rc = cli.main(argv)
+    if rc not in (0, None):
+        raise SystemExit(f"our CLI failed: {rc}")
+    print("ours ->", out)
+
+
+def ref_command(outdir, out, gvcf=False):
+    """(argv, env) of the reference binary on ``outdir``'s corpus."""
+    cmd = [REF_BIN, "HaplotypeCaller",
+           "-I", os.path.join(outdir, "sample.bam"),
+           "-R", os.path.join(outdir, "ref.fa"),
+           "-O", out,
+           "--nthreads", "2"]
+    if gvcf:
+        cmd += ["--emit-ref-confidence", "GVCF"]
+    env = dict(os.environ)
+    env["LD_LIBRARY_PATH"] = os.path.dirname(REF_BIN)
+    return cmd, env
+
+
+def run_ref(outdir, gvcf=False):
+    """The reference binary on ``outdir``'s corpus into ref.vcf (or
+    ref.g.vcf). Without the binary it stops with one line: nothing else
+    stands in for it."""
+    if not os.path.exists(REF_BIN):
+        raise SystemExit(f"reference binary missing: {REF_BIN} (build it "
+                         "with refshim/build_harness.sh)")
+    out = os.path.join(outdir, "ref.g.vcf" if gvcf else "ref.vcf")
+    cmd, env = ref_command(outdir, out, gvcf)
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=3600)
+    sys.stderr.write(r.stderr[-4000:] if r.stderr else "")
+    if r.returncode != 0:
+        raise SystemExit(f"reference binary failed rc={r.returncode}\n"
+                         f"{r.stdout[-2000:]}")
+    print("ref ->", out)
 
 
 # --------------------------------------------------------------------------
@@ -240,3 +308,32 @@ def diff(outdir, gvcf=False, check_id=False):
           and not band_mismatches)
     print("RESULT:", "MATCH" if ok else "DIVERGENT")
     return 0 if ok else 1
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m rovaca_tpu_torch.tools.golden_e2e",
+        description="generate a corpus, run either caller on it, diff "
+                    "their outputs")
+    p.add_argument("command", choices=["gen", "ours", "ref", "diff"])
+    p.add_argument("dir")
+    p.add_argument("numbers", nargs="*", type=int,
+                   help="gen: genome_len coverage seed")
+    p.add_argument("--gvcf", action="store_true")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "cuda", "torch", "native"])
+    p.add_argument("--check-id", action="store_true")
+    a = p.parse_args(argv)
+    if a.command == "gen":
+        generate(a.dir, *a.numbers)
+    elif a.command == "ours":
+        run_ours(a.dir, a.gvcf, a.engine)
+    elif a.command == "ref":
+        run_ref(a.dir, a.gvcf)
+    else:
+        return diff(a.dir, a.gvcf, check_id=a.check_id)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

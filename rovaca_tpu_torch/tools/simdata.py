@@ -1,8 +1,9 @@
 """Synthetic corpus data: diploid genomes, paired-end reads, BAM/FASTA.
 
 Counterpart of tests/simdata.py, carried over with what
-``tools.golden_e2e.generate`` calls, on this package's SW, BAM writer and
-records: the same seed gives the same FASTA and BAM bytes.
+``tools.golden_e2e.generate``, ``tools.host_profile`` and
+``tools.accuracy_eval`` call, on this package's SW, BAM writer and records:
+the same seed gives the same FASTA and BAM bytes.
 """
 
 import numpy as np
@@ -31,6 +32,31 @@ def apply_variants(ref, variants):
         prev = pos + len(ref_a)
     out.append(ref[prev:])
     return "".join(out)
+
+
+def simulate_reads(rng, ref, hap_seq, contig, n_reads, read_len=100,
+                   qual=35, mapq=60, name_prefix="sim", start=0, end=None):
+    """Sample reads from hap_seq, align each back to ref (our SW as the
+    'aligner') to get realistic pos/cigar."""
+    end = end if end is not None else len(hap_seq)
+    reads = []
+    for i in range(n_reads):
+        s = int(rng.integers(start, max(start + 1, end - read_len)))
+        frag = hap_seq[s:s + read_len]
+        if len(frag) < 30:
+            continue
+        # local alignment window on ref around s
+        w_lo = max(0, s - 50)
+        w_hi = min(len(ref), s + read_len + 50)
+        res = sw_align(ref[w_lo:w_hi].encode(), frag.encode(),
+                       READ_TO_HAPLOTYPE_PARAMS, OverhangStrategy.SOFTCLIP)
+        pos = w_lo + res.alignment_offset
+        quals = rng.integers(qual - 4, qual + 4, size=len(frag))
+        reads.append(ReadRecord(
+            name=f"{name_prefix}{i}", flag=0, ref_id=0, pos=pos,
+            mapping_quality=mapq, cigar=res.cigar, bases=frag, quals=quals,
+            contig=contig))
+    return reads
 
 
 def write_test_bam(path, reads, contig, contig_len, sample="NA12878",

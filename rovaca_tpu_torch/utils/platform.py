@@ -7,10 +7,12 @@ and names them.
 
 A process started by torchrun (``LOCAL_RANK`` in its environment) owns one
 card, ``cuda:{LOCAL_RANK % n}``, as a jax process owns its host's local
-chips; any other process launches on every visible card.
+chips; any other process launches on every visible card. ``card_info`` and
+``require_card`` serve the measuring tools (rovaca_tpu_torch/tools/).
 """
 
 import os
+import subprocess
 
 import torch
 
@@ -44,3 +46,28 @@ def device_name(dev=None):
     """Card name as torch.cuda.get_device_name reports it."""
     dev = device() if dev is None else dev
     return torch.cuda.get_device_name(dev)
+
+
+def card_info():
+    """{"name", "power_limit"} of card 0 as ``nvidia-smi
+    --query-gpu=name,power.limit`` prints them, or None without
+    nvidia-smi."""
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if res.returncode != 0 or not res.stdout.strip():
+        return None
+    name, _, limit = res.stdout.strip().splitlines()[0].rpartition(",")
+    return {"name": name.strip(), "power_limit": limit.strip()}
+
+
+def require_card(what):
+    """Stop (SystemExit, non-zero) unless a CUDA card is visible: a
+    measurement that names the card is never taken on the CPU."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{what} needs a CUDA device and none is visible; "
+                         "nothing was measured (the native and torch "
+                         "engines run on the CPU)")

@@ -13,6 +13,10 @@ version's, its traceback kernel's slots equal to the plain traceback's,
 and its cigars equal to the exact host SW's.
 """
 
+import json
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +30,7 @@ from rovaca_tpu_torch.parallel.host_executor import HostExecutor
 from rovaca_tpu_torch.parallel.pipeline_shard import sharded_pipeline_step
 from rovaca_tpu_torch.pipeline.hc_engine import CallerConfig
 from rovaca_tpu_torch.pipeline.scheduler import PairHMMScheduler
+from rovaca_tpu_torch.tools import golden_flows, kernel_bench, race_e2e
 from rovaca_tpu_torch.utils import platform
 
 THR = np.float32(C.MIN_ACCEPTED_F32)
@@ -465,3 +470,34 @@ def test_host_worker_never_touches_the_card(cuda):
     finally:
         executor.close()
     assert states == [(False, False)] * 4
+
+
+@pytest.mark.gpu
+def test_kernel_bench_names_the_card(cuda, capsys):
+    """kernel_bench's JSON line: bench.py's batch on K2 and K1, the card's
+    name, a positive rate."""
+    assert kernel_bench.main([]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "pairhmm_cell_updates_per_sec"
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert out["value"] > 0 and out["unit"] == "cells/s"
+    for name in ("pairhmm_dense", "pairhmm_indexed"):
+        k = out["kernels"][name]
+        assert k["ms"] > 0 and 0 < k["share_of_bound"] <= 1
+
+
+@pytest.mark.gpu
+def test_race_of_one_cuda_round(cuda, tmp_path):
+    """One cuda contender, one round after the warm-up, on the committed
+    50 kb corpus: K1 launched, the VCF rovaca_tpu's committed one."""
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for name in ("sample.bam", "sample.bam.bai", "ref.fa", "ref.fa.fai"):
+        shutil.copy(os.path.join(golden_flows.GOLDEN_DIR, name), corpus)
+    res = race_e2e.run_race(str(corpus), str(tmp_path / "race"), ("cuda",),
+                            n_runs=1, log=lambda line: None)
+    c = res["contenders"]["cuda"]
+    assert len(c["runs_s"]) == 1 and c["launches"][0] > 0
+    assert 0 < c["card_share"] < 1
+    assert c["ok"] and c["diff"] == "RESULT: MATCH", c["diff"]
+    assert res["held_to"] == "rovaca_tpu's committed output"
