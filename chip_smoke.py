@@ -35,40 +35,53 @@ exits non-zero:
    child process, see below; its ref.fa and BAM payload hashes must equal
    tests/golden_torch/MANIFEST.json's, so a stale corpus is told apart
    from a port that diverges) through ``rovaca_tpu_torch.cli
-   HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native`` on the
-   same inputs. The cuda run must launch K1, as often as its scheduler
-   counted. Its VCF is held to the native run's, and both to rovaca_tpu's
-   xla VCF of the corpus committed in tests/golden_torch/ (``1mb.vcf.xz``):
-   (CHROM, POS, REF, ALT, GT) identical, the other fields within
-   golden_e2e's tolerances. Each K1 launch's (G, Lr, Lh, real cells) and
-   its bound are printed.
-6. realignment path: the same corpus with ROVACA_BANDED_REALIGN=1 and the
-   cuda engine. K3's DP and traceback kernels must each launch as often as
-   ``stats["sw_launches"]`` counts, at least once; its VCF must match the
-   native run's; its fallbacks to the host SW are printed. Each launch's
-   (B, Ln, A, band cells) and its DP and traceback bounds, summed against
-   the K3 card time: after the counts are read, each launch replayed on its
-   recorded inputs, CUDA events around DP + traceback + slot copy, and
-   around each alone.
-7. region path: the port's ``RegionCaller.call_region`` (K2) over the first
-   200+ active regions of the corpus, engine cuda then native: the same
-   (pos, alleles, GT, GQ), PL within golden_e2e's PL_TOL, and K2 launched.
+   HaplotypeCaller`` with ``--pairhmm-engine cuda``, then ``native``, then
+   cuda with ROVACA_BANDED_REALIGN=0, on the same inputs. The default cuda
+   run must launch K1 as often as its scheduler counted, and realign on K3:
+   its DP and traceback kernels each launched as often as
+   ``stats["sw_launches"]`` counts, at least once; the native run and the
+   =0 run launch no K3. The cuda VCF is held to the native run's, the =0
+   run's records equal the default run's, and all three VCFs are held to
+   rovaca_tpu's xla VCF of the corpus committed in tests/golden_torch/
+   (``1mb.vcf.xz``): (CHROM, POS, REF, ALT, GT) identical, the other fields
+   within golden_e2e's tolerances. Each K1 launch's (G, Lr, Lh, real cells)
+   and its bound are printed; each K3 launch's (B, Ln, A, band cells) and
+   its DP and traceback bounds, summed against the K3 card time: after the
+   counts are read, each launch replayed on its recorded inputs, CUDA events
+   around DP + traceback + slot copy, and around each alone. K3's
+   fallbacks to the host SW are printed.
+6. adversarial path: the corpus of tools.golden_adversarial (three 150 kb
+   contigs at 30x with homopolymer stutter, STR expansions, SNP clusters
+   beside indels, N-gaps; seed 20260505), generated by a child process
+   started after phase 0, its ref.fa, BAM payload and truth.txt hashes
+   equal to the manifest's; its cuda VCF and GVCF with the default gate,
+   each launching K1 as often as the scheduler counted and K3's DP and
+   traceback as often as ``stats["sw_launches"]``, at least once, each
+   ``RESULT: MATCH`` against rovaca_tpu's committed ``adversarial.vcf.xz``
+   / ``adversarial.g.vcf.xz`` (GVCF band rows exactly); walls, launch
+   counts and K3's fallbacks printed.
+7. region path: the port's ``RegionCaller.call_region`` (K2, and K3 for the
+   realignment) over the first 200+ active regions of the corpus, engine
+   cuda then native: the same (pos, alleles, GT, GQ), PL within
+   golden_e2e's PL_TOL, and K2 launched.
 8. device-list path: every visible card named twice. A PairHMMScheduler
    over that list against a one-card scheduler on the same jobs (lik and
    kept array-equal); ``sharded_pipeline_step`` (K1) and
    ``sharded_pairhmm_step`` (K2) at S = 4 shards against their plain
    versions, held to K1's checks, and the global best within rtol 2e-5;
    ``pipeline_dryrun(4)`` through the card.
-9. ``--shards 2`` on the corpus, cuda engine: each shard launches K1 and the
-   merged VCF passes tools.race_e2e.depth_masked_diff against phase 5's
-   cuda VCF (the bar of tests/test_shard_confinement.py).
-10. ``-t 2`` on the corpus, cuda engine: K1 launched as often as the
-   scheduler counted, the VCF byte-identical to phase 5's.
+9. ``--shards 2`` on the 50 kb corpus committed in tests/golden_torch/, cuda
+   engine: each shard launches K1 and the merged VCF passes
+   tools.race_e2e.depth_masked_diff against phase 13's cuda VCF of that
+   corpus (the bar of tests/test_shard_confinement.py).
+10. ``-t 2`` on the 50 kb corpus, cuda engine: K1 launched as often as the
+   scheduler counted, the VCF byte-identical to phase 13's.
 11. two torch.distributed ranks (gloo, torchrun's environment) on the card,
-   cuda engine: both exit 0 and launch K1, rank 0's merged VCF passes
-   depth_masked_diff against phase 5's.
-12. GVCF path: the corpus with ``-e GVCF`` on the cuda engine. K1 must
-   launch, as often as the scheduler counted; the GVCF is held to
+   cuda engine, on the 50 kb corpus: both exit 0 and launch K1, rank 0's
+   merged VCF passes depth_masked_diff against phase 13's.
+12. GVCF path: the 1 Mb corpus with ``-e GVCF`` on the cuda engine. K1 must
+   launch, as often as the scheduler counted, and K3 as often as
+   ``stats["sw_launches"]``, at least once; the GVCF is held to
    rovaca_tpu's committed ``1mb.g.vcf.xz`` (golden_e2e.diff with gvcf:
    variant rows as above, every band row's END, GT, GQ, DP, MIN_DP and PL
    exactly). Wall, card share, rows and band rows are printed.
@@ -78,9 +91,10 @@ exits non-zero:
    (its files' hashes equal to the manifest's), cuda engine, in this
    process through ``cli.main``, each held to rovaca_tpu's committed output
    for it (IDs included). Every run launches K1, as often as the scheduler
-   counted; the banded flows launch K3's DP and traceback as often as
-   ``stats["sw_launches"]`` counts, at least once, the others never; each
-   flow did what it is for (golden_flows.effect_problems: BED and -L calls
+   counted, and K3's DP and traceback as often as ``stats["sw_launches"]``
+   counts, in every run at least once (the banded flows force the gate on,
+   the others take the card's default); each flow did what it is for
+   (golden_flows.effect_problems: BED and -L calls
    inside their spans, dbSNP IDs on the truth sites and not the decoy's
    or the filtered record's, BQSR records not the plain run's, --resume the
    straight run's records ending in the BGZF EOF block). BuildBamIndex and
@@ -103,21 +117,24 @@ exits non-zero:
    of (a)'s cuda VCF against the corpus's truth.txt (379 variants), the
    native VCF scoring the same.
 
-Order: the corpus of phase 5 is generated by a child process started after
-phase 0. Beside it run only work that reports no time the kernels' line or
-a measurement takes: phase 1, phase 2 at K1's untimed G 1024 shapes (their
-own lines mark their times as taken on a shared host), phase 8 and phase 13.
-The script then waits for the corpus and runs the rest of phase 2 and
-phases 3-7, 9-12 and 14 with the host to itself.
+Order: the corpora of phases 5 and 6 are generated by two child processes
+started after phase 0. Beside them run only work that reports no time the
+kernels' line or a measurement takes: phase 1, phase 2 at K1's untimed G
+1024 shapes (their own lines mark their times as taken on a shared host),
+phase 8, phase 13 and phases 9-11 (on the 50 kb corpus, too small to time;
+their walls are taken on a shared host). The script then waits for the 1 Mb
+corpus and runs the rest of phase 2 and phases 3-7, 12 and 14 with the host
+to itself.
 
-Every kernel's counter is set to 0 just before each of phases 5-8, 10, 12,
-each flow of 13 and each in-process run of 14 (b), and read just after;
-phases 9, 11 and 14 (a) run in child processes, whose schedulers' launch
-counts their summary lines print. The
+Every kernel's counter is set to 0 just before each run of phases 5 and 6,
+before phases 7, 8, 10 and 12, each flow of 13 and each in-process run of 14
+(b), and read just after; phases 9, 11 and 14 (a) run in child processes,
+whose schedulers' launch counts their summary lines print. The
 line before the last is the kernels' JSON summary: each kernel's launches on
-its path (and on the GVCF path and the flows, summed), its time and its
-plain version's at the timed shape (CUDA events on a stream held until the
-host has queued the call, so the card's time alone), and its bound there,
+its path (and on the GVCF path, the adversarial runs and the flows, summed),
+its time and its plain version's at the timed shape (CUDA events on a stream
+held until the host has queued the call, so the card's time alone), and its
+bound there,
 the larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type (PEAK_*), counting the work this run's data needs; no single
 PyTorch call computes any of the four functions, so ``library_ms`` is null.
@@ -130,7 +147,6 @@ import itertools
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -162,6 +178,8 @@ KERNELS = ("pairhmm_indexed", "pairhmm_dense", "sw_banded")
 # rovaca_tpu's xla outputs of the 1 Mb corpus (golden_flows.CORPUS_1MB),
 # committed in tests/golden_torch/
 REF_1MB_VCF, REF_1MB_GVCF = "1mb.vcf.xz", "1mb.g.vcf.xz"
+# the 50 kb corpus committed there: phase 13's flows and phases 9-11
+CORPUS_50KB = os.path.join(REPO, "tests", "golden_torch")
 MIN_REGIONS = 200
 SHARDS = 4             # shards of the sharded steps and the dryrun
 # phase 14: the race's contenders and rounds after its warm-up. A round is
@@ -700,43 +718,83 @@ def _print_run(tag, engine, stats):
           f"sw_fallbacks={stats['sw_fallbacks']}", flush=True)
 
 
-def start_corpus(workdir):
-    """Start generating the 1 Mb corpus into ``workdir`` in a child process
-    (``golden_e2e gen``): (the process, its start time)."""
-    from rovaca_tpu_torch.tools import golden_flows
-    c = golden_flows.CORPUS_1MB
-    cmd = [sys.executable, "-m", "rovaca_tpu_torch.tools.golden_e2e", "gen",
-           workdir, str(c["genome_len"]), str(c["coverage"]), str(c["seed"])]
-    with open(os.path.join(workdir, "corpus_gen.log"), "w") as log:
+def _start(cmd, log_path):
+    """Start ``cmd`` in a child process, its output to ``log_path``: (the
+    process, its start time, the log's path)."""
+    with open(log_path, "w") as log:
         return (subprocess.Popen(cmd, env=_cli_env(), stdout=log,
                                  stderr=subprocess.STDOUT),
-                time.perf_counter())
+                time.perf_counter(), log_path)
 
 
-def phase_corpus(workdir, gen):
-    """Wait for start_corpus's child ``gen`` and check the corpus's hashes
-    against the manifest's."""
+def start_corpus(workdir):
+    """Start generating the 1 Mb corpus into ``workdir`` in a child process
+    (``golden_e2e gen``)."""
     from rovaca_tpu_torch.tools import golden_flows
-    proc, started = gen
+    c = golden_flows.CORPUS_1MB
+    return _start([sys.executable, "-m", "rovaca_tpu_torch.tools.golden_e2e",
+                   "gen", workdir, str(c["genome_len"]), str(c["coverage"]),
+                   str(c["seed"])], os.path.join(workdir, "corpus_gen.log"))
+
+
+def start_adversarial(workdir):
+    """Start generating the adversarial corpus into ``workdir``/adversarial
+    in a child process (``golden_adversarial gen``)."""
+    from rovaca_tpu_torch.tools import golden_flows
+    out = os.path.join(workdir, "adversarial")
+    os.makedirs(out)
+    return _start([sys.executable, "-m",
+                   "rovaca_tpu_torch.tools.golden_adversarial", "gen", out,
+                   str(golden_flows.CORPUS_ADVERSARIAL["seed"])],
+                  os.path.join(workdir, "adversarial_gen.log"))
+
+
+def wait_corpus(gen, corpus, key, tag):
+    """Wait for the child ``gen`` that writes ``corpus`` and check the
+    corpus's hashes against the manifest's ``key`` entry."""
+    from rovaca_tpu_torch.tools import golden_flows
+    proc, started, log_path = gen
     t0 = time.perf_counter()
     proc.wait(timeout=900)
-    with open(os.path.join(workdir, "corpus_gen.log")) as log:
-        check(proc.returncode == 0, f"corpus generation exited "
+    with open(log_path) as log:
+        check(proc.returncode == 0, f"{tag} corpus generation exited "
               f"{proc.returncode}: {log.read()[-2000:]}")
-    print(f"[e2e] corpus {golden_flows.CORPUS_1MB} generated in a child "
-          f"process in {time.perf_counter() - started:.1f}s; waited "
+    pinned = golden_flows.load_manifest()[key]
+    print(f"[{tag}] corpus {pinned['args']} generated in a child process in "
+          f"{time.perf_counter() - started:.1f}s; waited "
           f"{time.perf_counter() - t0:.1f}s for it here", flush=True)
-    stale = golden_flows.corpus_1mb_problems(workdir)
+    stale = golden_flows.corpus_problems(corpus, key)
     check(not stale, f"the generated corpus is not the one the committed "
           f"rovaca_tpu references were made from: {stale}")
-    print("[e2e] corpus hashes (ref.fa, BAM payload) equal the manifest's",
-          flush=True)
+    hashed = [k for k in golden_flows.CORPUS_HASHED if k in pinned]
+    print(f"[{tag}] corpus hashes ({', '.join(hashed)}) equal the "
+          f"manifest's", flush=True)
+
+
+def stop(gen):
+    """Kill a corpus child that is still running (a phase before its wait
+    failed)."""
+    if gen[0].poll() is None:
+        gen[0].kill()
+        gen[0].wait()
+
+
+def _count_k3(counts, stats, where):
+    """K3's DP and traceback each launched as often as the caller's banded
+    batches, at least once."""
+    check(counts["sw_banded"] == counts["sw_traceback"]
+          == stats["sw_launches"] > 0,
+          f"{where}: K3 counted {counts['sw_banded']} DP and "
+          f"{counts['sw_traceback']} traceback launches, the caller "
+          f"{stats['sw_launches']}")
 
 
 def phase_main_path(workdir):
-    """The default VCF run on the cuda engine (K1), then the native engine's
-    on the same inputs, which the later paths are held to as well."""
+    """The default VCF run on the cuda engine (K1, and K3 for the
+    realignment), then the native engine's and the cuda engine's with
+    ROVACA_BANDED_REALIGN=0 on the same inputs; K3's launches replayed."""
     import torch
+    from rovaca_tpu_torch.ops.sw import banded
     from rovaca_tpu_torch.pipeline import scheduler
     from rovaca_tpu_torch.tools import golden_e2e, golden_flows
 
@@ -751,36 +809,67 @@ def phase_main_path(workdir):
     bam = os.path.join(workdir, "sample.bam")
     ref = os.path.join(workdir, "ref.fa")
     runs = {}
-    # the K1 launches' inputs, kept to print their shapes after the run
-    launched = []
-    kernel = scheduler.pairhmm_indexed_compact
+    # the default run's K1 and K3 DP launches' inputs, kept to print their
+    # shapes and replay K3's after the run
+    launched, sw_launched = [], []
+    kernel, sw_kernel = scheduler.pairhmm_indexed_compact, banded.banded_sw
 
     def recording(*t):
         launched.append(t)
         return kernel(*t)
 
-    for engine, out in (("cuda", "ours.vcf"), ("native", "ref.vcf")):
+    def sw_recording(refs, alts, meta, *, params, C, **kw):
+        sw_launched.append((refs, alts, meta, C, params))
+        return sw_kernel(refs, alts, meta, params=params, C=C, **kw)
+
+    for name, engine, out, env in (
+            ("cuda", "cuda", "ours.vcf", None),
+            ("native", "native", "ref.vcf", None),
+            ("cuda_native_sw", "cuda", "native_sw.vcf", "0")):
         stats = {}
+        if env is not None:
+            os.environ["ROVACA_BANDED_REALIGN"] = env
         torch.cuda.synchronize()
         reset_counts()
-        scheduler.pairhmm_indexed_compact = recording
+        if name == "cuda":
+            scheduler.pairhmm_indexed_compact = recording
+            banded.banded_sw = sw_recording
         try:
             rc = _hc(bam, ref, os.path.join(workdir, out), engine, stats)
             torch.cuda.synchronize()
         finally:
             scheduler.pairhmm_indexed_compact = kernel
+            banded.banded_sw = sw_kernel
+            os.environ.pop("ROVACA_BANDED_REALIGN", None)
         counts = read_counts()
-        check(rc == 0, f"{engine} run exited {rc}")
-        runs[engine] = (stats, counts)
-        _print_run("e2e", engine, stats)
-    cu, launches = runs["cuda"][0], runs["cuda"][1]["pairhmm_indexed"]
+        check(rc == 0, f"{name} run exited {rc}")
+        runs[name] = (stats, counts)
+        _print_run("e2e", name, stats)
+    cu, counts = runs["cuda"]
+    launches = counts["pairhmm_indexed"]
     check(launches > 0, "main path made no kernel launch")
     check(launches == cu["launches"], f"kernel counted {launches} launches, "
           f"the scheduler {cu['launches']}")
     check(runs["native"][1]["pairhmm_indexed"] == 0, "native run launched K1")
     check(cu["regions"] > 0 and cu["calls"] > 0, "no regions or records")
-    check(cu["sw_launches"] == 0, "the default path ran the banded SW")
     check(len(launched) == launches, f"{len(launched)} launches recorded")
+    _count_k3(counts, cu, "the default cuda run")
+    check(len(sw_launched) == counts["sw_banded"],
+          f"{len(sw_launched)} K3 launches recorded")
+    off, off_counts = runs["cuda_native_sw"]
+    check(off_counts["pairhmm_indexed"] == off["launches"] > 0,
+          f"the =0 run: K1 counted {off_counts['pairhmm_indexed']}, the "
+          f"scheduler {off['launches']}")
+    for name in ("native", "cuda_native_sw"):
+        st, c = runs[name]
+        check(c["sw_banded"] == c["sw_traceback"] == st["sw_launches"] == 0,
+              f"the {name} run launched K3: {c}, {st['sw_launches']}")
+    print(f"[e2e] K3 launches on the default cuda run: DP="
+          f"{counts['sw_banded']} traceback={counts['sw_traceback']} "
+          f"sw_launches={cu['sw_launches']} sw_fallbacks="
+          f"{cu['sw_fallbacks']}; wall_s cuda={cu['wall_s']:.3f} "
+          f"cuda with ROVACA_BANDED_REALIGN=0={off['wall_s']:.3f} native="
+          f"{runs['native'][0]['wall_s']:.3f}", flush=True)
     total = 0.0
     for k, t in enumerate(launched):
         q, rlen, hcode, hlen, hidx, ridx = t[0], t[4], t[5], t[6], t[7], t[8]
@@ -799,18 +888,134 @@ def phase_main_path(workdir):
     identical = sum(x == y for x, y in zip(a, b))
     print(f"[e2e] records cuda={len(a)} native={len(b)} byte-identical="
           f"{identical}", flush=True)
+    check(_records(os.path.join(workdir, "native_sw.vcf")) == a,
+          "the cuda run with ROVACA_BANDED_REALIGN=0 gives other records "
+          "than the default cuda run")
+    print("[e2e] cuda with ROVACA_BANDED_REALIGN=0: records equal the "
+          "default cuda run's", flush=True)
     rc = golden_e2e.diff(workdir)   # ours = cuda, ref = native
     check(rc == 0, "cuda VCF diverges from the native engine's")
-    for engine, out in (("cuda", "ours.vcf"), ("native", "ref.vcf")):
-        print(f"[e2e] {engine} VCF against rovaca_tpu's committed "
+    for name, out in (("cuda", "ours.vcf"), ("native", "ref.vcf"),
+                      ("cuda_native_sw", "native_sw.vcf")):
+        print(f"[e2e] {name} VCF against rovaca_tpu's committed "
               f"{REF_1MB_VCF}:", flush=True)
         rc = golden_flows.diff_against(
             os.path.join(workdir, out), REF_1MB_VCF,
-            os.path.join(workdir, f"rovaca_{engine}"), gvcf=False)
-        check(rc == 0, f"the {engine} VCF diverges from rovaca_tpu's")
+            os.path.join(workdir, f"rovaca_{name}"), gvcf=False)
+        check(rc == 0, f"the {name} VCF diverges from rovaca_tpu's")
     check_imports()
     return {"launches": launches, "wall_s": cu["wall_s"],
-            "native_wall_s": runs["native"][0]["wall_s"]}
+            "native_wall_s": runs["native"][0]["wall_s"],
+            "native_sw_wall_s": off["wall_s"],
+            "sw": replay_k3(sw_launched, cu["sw_fallbacks"])}
+
+
+def replay_k3(launched, fallbacks):
+    """Each recorded K3 DP launch's shape and bounds (the traceback's from
+    its replayed slots), and its card time: DP + traceback + slot copy, and
+    each alone, on its recorded inputs."""
+    import torch
+    from rovaca_tpu_torch.assembly.sw import OverhangStrategy
+    from rovaca_tpu_torch.ops.sw import banded
+    params = launched[0][4]
+    soft = OverhangStrategy.SOFTCLIP
+    kernel = banded.banded_sw
+    dp_total = tb_total = 0.0
+    ms = dict.fromkeys(("k3", "dp", "tb", "copy", "band"), 0.0)
+    shapes, steps_total, slot_bytes, band_bytes = [], 0, 0, 0
+    for refs, alts, meta, C, _ in launched:
+        B, Ln = refs.shape
+        S = int((meta[:, 0] + meta[:, 1]).max()) + banded.HEADER
+        slots = banded.sw_traceback(*kernel(refs, alts, meta, params=params,
+                                            C=C), meta, overhang=soft, S=S)
+        host = torch.empty(slots.shape, dtype=slots.dtype, pin_memory=True)
+
+        def k3():
+            out = banded.sw_traceback(*kernel(refs, alts, meta,
+                                              params=params, C=C),
+                                      meta, overhang=soft, S=S)
+            host.copy_(out, non_blocking=True)
+
+        k3_ms, _ = time_ms(k3)
+        dp_ms, outs = time_ms(lambda: kernel(refs, alts, meta,
+                                             params=params, C=C))
+        tb_ms, _ = time_ms(lambda: banded.sw_traceback(
+            *outs, meta, overhang=soft, S=S))
+        c_ms, _ = time_ms(lambda: host.copy_(slots, non_blocking=True))
+        # for the record: the band's copy, which the slots replaced
+        band = torch.empty(outs[0].shape, dtype=outs[0].dtype,
+                           pin_memory=True)
+        b_ms, _ = time_ms(lambda: band.copy_(outs[0], non_blocking=True))
+        dp_b, _, cells, _, _, _ = sw_dp_bound((refs, alts, meta), outs)
+        tb_b, _, steps = sw_tb_bound(
+            meta, banded.unpack_slots(slots.cpu().numpy()))
+        dp_total += dp_b
+        tb_total += tb_b
+        for key, v in zip(ms, (k3_ms, dp_ms, tb_ms, c_ms, b_ms)):
+            ms[key] += v
+        slot_bytes += slots.numel() * slots.element_size()
+        band_bytes += outs[0].numel() * outs[0].element_size()
+        steps_total += steps
+        shapes.append(f"{B}/{Ln}/{alts.shape[1]}/{cells}/"
+                      f"{dp_b * 1e3:.3f}/{tb_b * 1e3:.3f}")
+    print(f"[e2e] K3 launches as B/Ln/A/band cells/DP bound us/"
+          f"traceback bound us: {' '.join(shapes)}", flush=True)
+    Bs = sorted(x[0].shape[0] for x in launched)
+    Lns = sorted(x[0].shape[1] for x in launched)
+    print(f"[e2e] K3 launch B min/median/max {Bs[0]}/{Bs[len(Bs) // 2]}/"
+          f"{Bs[-1]}, Ln min/median/max {Lns[0]}/{Lns[len(Lns) // 2]}/"
+          f"{Lns[-1]}; bounds summed: DP {dp_total:.4f} ms + traceback "
+          f"{tb_total:.4f} ms ({steps_total} walk steps) against "
+          f"{ms['k3']:.4f} ms of K3 card time (the {len(launched)} launches "
+          f"replayed, events around DP + traceback + slot copy); alone, "
+          f"summed: DP {ms['dp']:.4f} (bound share "
+          f"{dp_total / ms['dp']:.4f}), traceback {ms['tb']:.4f}, slot copy "
+          f"{ms['copy']:.4f} ({slot_bytes} bytes; the band's copy "
+          f"{ms['band']:.4f}, {band_bytes} bytes)", flush=True)
+    return {"launches": len(launched), "fallbacks": fallbacks,
+            "card_ms": ms["k3"], "dp_ms": ms["dp"], "tb_ms": ms["tb"],
+            "copy_ms": ms["copy"], "slot_bytes": slot_bytes,
+            "band_copy_ms": ms["band"], "band_bytes": band_bytes,
+            "dp_bound_ms": dp_total, "tb_bound_ms": tb_total}
+
+
+def phase_adversarial(workdir, gen):
+    """The adversarial corpus's cuda VCF and GVCF with the default gate (K1
+    and K3), each held to rovaca_tpu's committed output."""
+    import torch
+    from rovaca_tpu_torch.tools import golden_adversarial
+    corpus = os.path.join(workdir, "adversarial")
+    wait_corpus(gen, corpus, "corpus_adversarial", "adversarial")
+    totals = dict.fromkeys(("pairhmm_indexed", "sw_banded", "sw_traceback"),
+                           0)
+    for gvcf in (False, True):
+        mode = "GVCF" if gvcf else "VCF"
+        out = os.path.join(corpus, "ours.g.vcf" if gvcf else "ours.vcf")
+        stats = {}
+        torch.cuda.synchronize()
+        reset_counts()
+        rc = _hc(os.path.join(corpus, "sample.bam"),
+                 os.path.join(corpus, "ref.fa"), out, "cuda", stats,
+                 *(("-e", "GVCF") if gvcf else ()))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(rc == 0, f"adversarial {mode} run exited {rc}")
+        _print_run("adversarial", f"cuda {mode}", stats)
+        print(f"[adversarial] {mode}: rows={len(_records(out))} K1 launches="
+              f"{counts['pairhmm_indexed']} K3 DP/traceback="
+              f"{counts['sw_banded']}/{counts['sw_traceback']} sw_fallbacks="
+              f"{stats['sw_fallbacks']}; against rovaca_tpu's committed "
+              f"{golden_adversarial.REFERENCES[gvcf]}:", flush=True)
+        check(counts["pairhmm_indexed"] == stats["launches"] > 0,
+              f"adversarial {mode}: K1 counted {counts['pairhmm_indexed']}, "
+              f"the scheduler {stats['launches']}")
+        _count_k3(counts, stats, f"adversarial {mode}")
+        check(golden_adversarial.diff(corpus, gvcf) == 0,
+              f"the adversarial cuda {mode} diverges from rovaca_tpu's")
+        for key in totals:
+            totals[key] += counts[key]
+    check_imports()
+    return totals
 
 
 def _band_rows(path):
@@ -838,17 +1043,20 @@ def phase_gvcf_path(workdir):
     _print_run("gvcf", "cuda", stats)
     rows, bands = len(_records(out)), _band_rows(out)
     print(f"[gvcf] rows={rows} band_rows={bands} K1 launches="
-          f"{counts['pairhmm_indexed']}; against rovaca_tpu's committed "
+          f"{counts['pairhmm_indexed']} K3 DP/traceback="
+          f"{counts['sw_banded']}/{counts['sw_traceback']} sw_fallbacks="
+          f"{stats['sw_fallbacks']}; against rovaca_tpu's committed "
           f"{REF_1MB_GVCF}:", flush=True)
     check(counts["pairhmm_indexed"] == stats["launches"] > 0,
           f"K1 counted {counts['pairhmm_indexed']} launches, the scheduler "
           f"{stats['launches']}")
-    check(counts["sw_banded"] == 0, "the GVCF path ran the banded SW")
+    _count_k3(counts, stats, "the GVCF path")
     rc = golden_flows.diff_against(out, REF_1MB_GVCF,
                                    os.path.dirname(out), gvcf=True)
     check(rc == 0, "the cuda GVCF diverges from rovaca_tpu's")
     check_imports()
-    return {"launches": stats["launches"], "wall_s": stats["wall_s"]}
+    return {"launches": stats["launches"], "wall_s": stats["wall_s"],
+            "sw_launches": counts["sw_banded"]}
 
 
 def phase_flows(workdir):
@@ -907,134 +1115,21 @@ def phase_flows(workdir):
         check(all(k > 0 for k in k1) and sum(k1) == counts["pairhmm_indexed"],
               f"flow {name}: K1 launches {k1}, counted "
               f"{counts['pairhmm_indexed']}")
-        banded = dict(flow.env).get("ROVACA_BANDED_REALIGN") == "1"
-        check(counts["sw_banded"] == counts["sw_traceback"] == sw
-              and (sw > 0) == banded,
+        # every cuda flow realigns on K3 unless its environment sets 0
+        check(counts["sw_banded"] == counts["sw_traceback"] == sw,
               f"flow {name}: K3 counted {counts['sw_banded']} DP and "
               f"{counts['sw_traceback']} traceback launches, the caller {sw}")
         check(golden_flows.diff_flow(name, result["output"],
                                      os.path.join(workdir, name, "diff"))
               == 0, f"flow {name} diverges from rovaca_tpu's output")
-        problems = golden_flows.effect_problems(name, result)
+        problems = golden_flows.effect_problems(
+            name, result, engine="cuda",
+            sw_launches=[s["sw_launches"] for s in runs])
         check(not problems, f"flow {name}: {problems}")
         for key in totals:
             totals[key] += counts[key]
     check_imports()
     return totals
-
-
-def phase_realign_path(workdir, default_wall_s):
-    """The same corpus with ROVACA_BANDED_REALIGN=1 on the cuda engine: the
-    realignment runs K3 (DP, then traceback) on the card."""
-    import torch
-    from rovaca_tpu_torch.assembly.sw import OverhangStrategy
-    from rovaca_tpu_torch.ops.sw import banded
-    from rovaca_tpu_torch.tools import golden_e2e
-    out_dir = os.path.join(workdir, "banded")
-    os.makedirs(out_dir)
-    shutil.copy(os.path.join(workdir, "ref.vcf"), out_dir)   # native run's
-    stats = {}
-    # the DP launches' inputs, kept to print and replay them after the run
-    launched = []
-    kernel = banded.banded_sw
-
-    def recording(refs, alts, meta, *, params, C, **kw):
-        launched.append((refs, alts, meta, C, params))
-        return kernel(refs, alts, meta, params=params, C=C, **kw)
-
-    os.environ["ROVACA_BANDED_REALIGN"] = "1"
-    try:
-        torch.cuda.synchronize()
-        reset_counts()
-        banded.banded_sw = recording
-        rc = _hc(os.path.join(workdir, "sample.bam"),
-                 os.path.join(workdir, "ref.fa"),
-                 os.path.join(out_dir, "ours.vcf"), "cuda", stats)
-        torch.cuda.synchronize()
-        counts = read_counts()
-    finally:
-        banded.banded_sw = kernel
-        del os.environ["ROVACA_BANDED_REALIGN"]
-    check(rc == 0, f"banded realignment run exited {rc}")
-    _print_run("realign", "cuda", stats)
-    launches, tb_launches = counts["sw_banded"], counts["sw_traceback"]
-    print(f"[realign] K3 launches: DP={launches} traceback={tb_launches} "
-          f"sw_launches={stats['sw_launches']} sw_fallbacks="
-          f"{stats['sw_fallbacks']} wall_s={stats['wall_s']:.3f} "
-          f"default_path_wall_s={default_wall_s:.3f}", flush=True)
-    check(launches > 0, "the realignment path made no K3 launch")
-    check(launches == tb_launches == stats["sw_launches"] == len(launched),
-          f"K3 counted {launches} DP and {tb_launches} traceback launches, "
-          f"the caller {stats['sw_launches']}, recorded {len(launched)}")
-    check(counts["pairhmm_indexed"] == stats["launches"] > 0,
-          "the realignment path's K1 launches do not add up")
-    rc = golden_e2e.diff(out_dir)   # ours = banded cuda, ref = native
-    check(rc == 0, "the banded realignment VCF diverges from the native "
-          "engine's")
-    check_imports()
-
-    # every launch's shape and bounds (the traceback's from its replayed
-    # slots), and its card time: DP + traceback + slot copy, and each alone
-    params = launched[0][4]
-    soft = OverhangStrategy.SOFTCLIP
-    dp_total = tb_total = 0.0
-    ms = dict.fromkeys(("k3", "dp", "tb", "copy", "band"), 0.0)
-    shapes, steps_total, slot_bytes, band_bytes = [], 0, 0, 0
-    for refs, alts, meta, C, _ in launched:
-        B, Ln = refs.shape
-        S = int((meta[:, 0] + meta[:, 1]).max()) + banded.HEADER
-        slots = banded.sw_traceback(*kernel(refs, alts, meta, params=params,
-                                            C=C), meta, overhang=soft, S=S)
-        host = torch.empty(slots.shape, dtype=slots.dtype, pin_memory=True)
-
-        def k3():
-            out = banded.sw_traceback(*kernel(refs, alts, meta,
-                                              params=params, C=C),
-                                      meta, overhang=soft, S=S)
-            host.copy_(out, non_blocking=True)
-
-        k3_ms, _ = time_ms(k3)
-        dp_ms, outs = time_ms(lambda: kernel(refs, alts, meta,
-                                             params=params, C=C))
-        tb_ms, _ = time_ms(lambda: banded.sw_traceback(
-            *outs, meta, overhang=soft, S=S))
-        c_ms, _ = time_ms(lambda: host.copy_(slots, non_blocking=True))
-        # for the record: the band's copy, which the slots replaced
-        band = torch.empty(outs[0].shape, dtype=outs[0].dtype,
-                           pin_memory=True)
-        b_ms, _ = time_ms(lambda: band.copy_(outs[0], non_blocking=True))
-        dp_b, _, cells, _, _, _ = sw_dp_bound((refs, alts, meta), outs)
-        tb_b, _, steps = sw_tb_bound(
-            meta, banded.unpack_slots(slots.cpu().numpy()))
-        dp_total += dp_b
-        tb_total += tb_b
-        for key, v in zip(ms, (k3_ms, dp_ms, tb_ms, c_ms, b_ms)):
-            ms[key] += v
-        slot_bytes += slots.numel() * slots.element_size()
-        band_bytes += outs[0].numel() * outs[0].element_size()
-        steps_total += steps
-        shapes.append(f"{B}/{Ln}/{alts.shape[1]}/{cells}/"
-                      f"{dp_b * 1e3:.3f}/{tb_b * 1e3:.3f}")
-    print(f"[realign] K3 launches as B/Ln/A/band cells/DP bound us/"
-          f"traceback bound us: {' '.join(shapes)}", flush=True)
-    Bs = sorted(x[0].shape[0] for x in launched)
-    Lns = sorted(x[0].shape[1] for x in launched)
-    print(f"[realign] K3 launch B min/median/max {Bs[0]}/{Bs[len(Bs) // 2]}/"
-          f"{Bs[-1]}, Ln min/median/max {Lns[0]}/{Lns[len(Lns) // 2]}/"
-          f"{Lns[-1]}; bounds summed: DP {dp_total:.4f} ms + traceback "
-          f"{tb_total:.4f} ms ({steps_total} walk steps) against "
-          f"{ms['k3']:.4f} ms of K3 card time (the {launches} launches "
-          f"replayed, events around DP + traceback + slot copy); alone, "
-          f"summed: DP {ms['dp']:.4f} (bound share "
-          f"{dp_total / ms['dp']:.4f}), traceback {ms['tb']:.4f}, slot copy "
-          f"{ms['copy']:.4f} ({slot_bytes} bytes; the band's copy "
-          f"{ms['band']:.4f}, {band_bytes} bytes)", flush=True)
-    return {"launches": launches, "tb_launches": tb_launches,
-            "fallbacks": stats["sw_fallbacks"], "wall_s": stats["wall_s"],
-            "card_ms": ms["k3"], "dp_ms": ms["dp"], "tb_ms": ms["tb"],
-            "copy_ms": ms["copy"], "slot_bytes": slot_bytes,
-            "band_copy_ms": ms["band"], "band_bytes": band_bytes,
-            "dp_bound_ms": dp_total, "tb_bound_ms": tb_total}
 
 
 def region_tasks(workdir, n_min=MIN_REGIONS):
@@ -1119,7 +1214,9 @@ def phase_region_path(workdir):
         counts = read_counts()
         print(f"[region] engine={engine} regions={len(tasks)} calls="
               f"{sum(map(len, results[engine]))} wall_s={dt:.3f} "
-              f"K2 launches={counts['pairhmm_dense']}", flush=True)
+              f"K2 launches={counts['pairhmm_dense']} K3 DP/traceback="
+              f"{counts['sw_banded']}/{counts['sw_traceback']} (realignment)",
+              flush=True)
         if engine == "cuda":
             launches = counts["pairhmm_dense"]
     check(launches > 0, "the region path made no K2 launch")
@@ -1283,32 +1380,43 @@ def _cli_env():
     return env
 
 
-def _cli_cmd(workdir, out, *extra):
+def _cli_cmd(corpus, out, *extra):
     return [sys.executable, "-m", "rovaca_tpu_torch.cli", "HaplotypeCaller",
-            "-i", os.path.join(workdir, "sample.bam"),
-            "-r", os.path.join(workdir, "ref.fa"), "-o", out,
+            "-i", os.path.join(corpus, "sample.bam"),
+            "-r", os.path.join(corpus, "ref.fa"), "-o", out,
             "--pairhmm-engine", "cuda", "--log-level", "WARNING", *extra]
 
 
+def _flows_vcf(workdir):
+    """Phase 13's cuda VCF of the 50 kb corpus (its "vcf" flow, held to
+    rovaca_tpu's committed one), which phases 9-11 are held to."""
+    return os.path.join(workdir, "flows", "vcf", "vcf.vcf")
+
+
 def _masked_diff(workdir, path, tag):
-    """Hold a split run's VCF to phase 5's unsharded cuda VCF by
+    """Hold a split run's VCF to the unsplit cuda VCF of the 50 kb corpus by
     tests/test_shard_confinement.py's bar (tools.race_e2e)."""
     from rovaca_tpu_torch.tools import race_e2e
+    base = _flows_vcf(workdir)
     ok, detail = race_e2e.depth_masked_diff(
-        os.path.join(workdir, "ours.vcf"), path,
-        bam_path=os.path.join(workdir, "sample.bam"))
-    print(f"[{tag}] records={len(_records(path))} against the unsharded "
-          f"cuda run ({len(_records(os.path.join(workdir, 'ours.vcf')))}): "
-          f"{detail}", flush=True)
+        base, path, bam_path=os.path.join(CORPUS_50KB, "sample.bam"))
+    print(f"[{tag}] records={len(_records(path))} against the unsplit "
+          f"cuda run ({len(_records(base))}): {detail}", flush=True)
     check(ok, f"{tag} VCF diverges beyond the depth mask: {detail}")
 
 
+def _parallel_dir(workdir):
+    out = os.path.join(workdir, "parallel")
+    os.makedirs(out, exist_ok=True)
+    return out
+
+
 def phase_shards(workdir):
-    """``--shards 2`` on the corpus, cuda engine: two shard processes on the
-    card, their VCFs merged in genome order."""
-    out = os.path.join(workdir, "shards.vcf")
+    """``--shards 2`` on the 50 kb corpus, cuda engine: two shard processes
+    on the card, their VCFs merged in genome order."""
+    out = os.path.join(_parallel_dir(workdir), "shards.vcf")
     t0 = time.perf_counter()
-    res = subprocess.run(_cli_cmd(workdir, out, "--shards", "2"),
+    res = subprocess.run(_cli_cmd(CORPUS_50KB, out, "--shards", "2"),
                          env=_cli_env(), capture_output=True, text=True,
                          timeout=600)
     wall = time.perf_counter() - t0
@@ -1325,15 +1433,16 @@ def phase_shards(workdir):
 
 
 def phase_host_workers(workdir):
-    """``-t 2`` on the corpus, cuda engine, in this process: two worker
-    processes prepare the regions, this one launches K1."""
+    """``-t 2`` on the 50 kb corpus, cuda engine, in this process: two
+    worker processes prepare the regions, this one launches K1."""
     import torch
-    out = os.path.join(workdir, "t2.vcf")
+    out = os.path.join(_parallel_dir(workdir), "t2.vcf")
     stats = {}
     torch.cuda.synchronize()
     reset_counts()
-    rc = _hc(os.path.join(workdir, "sample.bam"),
-             os.path.join(workdir, "ref.fa"), out, "cuda", stats, "-t", "2")
+    rc = _hc(os.path.join(CORPUS_50KB, "sample.bam"),
+             os.path.join(CORPUS_50KB, "ref.fa"), out, "cuda", stats, "-t",
+             "2")
     torch.cuda.synchronize()
     counts = read_counts()
     check(rc == 0, f"-t 2 run exited {rc}")
@@ -1341,8 +1450,7 @@ def phase_host_workers(workdir):
     check(counts["pairhmm_indexed"] == stats["launches"] > 0,
           f"K1 counted {counts['pairhmm_indexed']} launches, the scheduler "
           f"{stats['launches']}")
-    with open(out, "rb") as a, \
-            open(os.path.join(workdir, "ours.vcf"), "rb") as b:
+    with open(out, "rb") as a, open(_flows_vcf(workdir), "rb") as b:
         check(a.read() == b.read(), "-t 2 VCF differs from the -t 1 VCF")
     print("[workers] VCF byte-identical to the -t 1 cuda run", flush=True)
     check_imports()
@@ -1351,19 +1459,20 @@ def phase_host_workers(workdir):
 
 def phase_ranks(workdir):
     """Two torch.distributed ranks (gloo, torchrun's environment) on the
-    one card, cuda engine; rank 0 merges."""
+    one card, cuda engine, on the 50 kb corpus; rank 0 merges."""
     import socket
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    out = os.path.join(workdir, "ranks.vcf")
+    out_dir = _parallel_dir(workdir)
+    out = os.path.join(out_dir, "ranks.vcf")
     t0 = time.perf_counter()
     procs = []
     for rank in range(2):
         env = _cli_env()
         env.update(WORLD_SIZE="2", RANK=str(rank), LOCAL_RANK=str(rank),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(_cli_cmd(workdir, out), env=env,
+        procs.append(subprocess.Popen(_cli_cmd(CORPUS_50KB, out), env=env,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
 
@@ -1384,7 +1493,7 @@ def phase_ranks(workdir):
         check(ranks and all(r[4] > 0 for r in ranks),
               f"rank {rank} made no K1 launch")
     _masked_diff(workdir, out, "ranks")
-    check(not [f for f in os.listdir(workdir) if ".rank" in f],
+    check(not [f for f in os.listdir(out_dir) if ".rank" in f],
           "rank shard files left behind")
     check_imports()
     print("[ranks] neither jax nor rovaca_tpu was imported by this process",
@@ -1553,8 +1662,9 @@ def main():
         timed("card", phase_card)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             gen = start_corpus(workdir)
+            adv_gen = start_adversarial(workdir)
             try:
-                # beside the corpus's generation: nothing that times what
+                # beside the corpora's generation: nothing that times what
                 # the kernels' line or phase 14 reports
                 timed("build", phase_build)
                 k1_beside = timed(
@@ -1563,24 +1673,25 @@ def main():
                     "taken on a shared host)")
                 device_list = timed("device-list path", phase_device_list)
                 flows = timed("flows", phase_flows, workdir)
-                timed("corpus", phase_corpus, workdir, gen)
+                # on the 50 kb corpus, held to the flows' cuda VCF
+                timed("--shards 2", phase_shards, workdir)
+                timed("-t 2", phase_host_workers, workdir)
+                timed("two ranks", phase_ranks, workdir)
+                timed("corpus", wait_corpus, gen, workdir, "corpus_1mb",
+                      "e2e")
+                k1 = timed("K1 vs plain", phase_kernels,
+                           [s for s in SHAPES if s not in BESIDE_CORPUS])
+                k1["max_abs_err"] = max(k1["max_abs_err"],
+                                        k1_beside["max_abs_err"])
+                k2 = timed("K2 vs plain", phase_dense)
+                k3 = timed("K3 vs plain", phase_sw)
+                main_path = timed("main path", phase_main_path, workdir)
+                adversarial = timed("adversarial path", phase_adversarial,
+                                    workdir, adv_gen)
             finally:
-                if gen[0].poll() is None:    # a phase before it failed
-                    gen[0].kill()
-                    gen[0].wait()
-            k1 = timed("K1 vs plain", phase_kernels,
-                       [s for s in SHAPES if s not in BESIDE_CORPUS])
-            k1["max_abs_err"] = max(k1["max_abs_err"],
-                                    k1_beside["max_abs_err"])
-            k2 = timed("K2 vs plain", phase_dense)
-            k3 = timed("K3 vs plain", phase_sw)
-            main_path = timed("main path", phase_main_path, workdir)
-            realign = timed("realignment path", phase_realign_path, workdir,
-                            main_path["wall_s"])
+                stop(gen)
+                stop(adv_gen)
             region = timed("region path", phase_region_path, workdir)
-            timed("--shards 2", phase_shards, workdir)
-            timed("-t 2", phase_host_workers, workdir)
-            timed("two ranks", phase_ranks, workdir)
             gvcf = timed("GVCF path", phase_gvcf_path, workdir)
             timed("measure", phase_measure, workdir, {
                 "cuda": main_path["wall_s"],
@@ -1589,12 +1700,14 @@ def main():
     except PhaseError as exc:
         print(f"FAIL: {exc}", file=sys.stderr)
         return 1
+    realign = main_path["sw"]
     print(json.dumps({"kernels": [
         {"name": "pairhmm_indexed", "route": "cuda",
          "source": "rovaca_tpu_torch/csrc/pairhmm_indexed.cu",
          "replaces": "rovaca_tpu/ops/pairhmm/indexed.py:74",
          "launches": main_path["launches"],
          "gvcf_launches": gvcf["launches"],
+         "adversarial_launches": adversarial["pairhmm_indexed"],
          "flows_launches": flows["pairhmm_indexed"],
          "device_list_launches": device_list["pairhmm_indexed"],
          "max_abs_err": k1["max_abs_err"],
@@ -1619,6 +1732,8 @@ def main():
          "source": "rovaca_tpu_torch/csrc/sw_banded.cu",
          "replaces": "rovaca_tpu/ops/sw/banded.py:242",
          "launches": realign["launches"],
+         "gvcf_launches": gvcf["sw_launches"],
+         "adversarial_launches": adversarial["sw_banded"],
          "flows_launches": flows["sw_banded"],
          "device_list_launches": device_list["sw_banded"],
          "max_abs_err": k3["max_abs_err"],
@@ -1636,7 +1751,9 @@ def main():
          "replaces": "rovaca_tpu/ops/sw/banded.py:286",
          "replaces_what": "_traceback_band, host code run on _banded_call's "
                           "outputs (not a Pallas kernel)",
-         "launches": realign["tb_launches"],
+         "launches": realign["launches"],
+         "gvcf_launches": gvcf["sw_launches"],
+         "adversarial_launches": adversarial["sw_traceback"],
          "flows_launches": flows["sw_traceback"],
          "device_list_launches": device_list["sw_traceback"],
          "max_abs_err": k3["tb_err"],

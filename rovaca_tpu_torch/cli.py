@@ -6,10 +6,13 @@ Counterpart of rovaca_tpu/cli.py with the same tools and flags:
         -o out.vcf
 
 ``--pairhmm-engine`` is auto|cuda|torch|native; auto is cuda and fails
-without a card. ROVACA_BANDED_REALIGN=1 in the environment routes the
-realignment of reads to their best haplotype through the banded SW kernel on
-the engine's device. ``--shards N`` runs N shard processes and merges their
-VCFs (parallel/sharded_runner.py), ``-t N`` prepares regions in N worker
+without a card. On the cuda engine the realignment of reads to their best
+haplotype runs through the banded SW kernel on the card, and
+ROVACA_BANDED_REALIGN=0 in the environment keeps it on the native SW batch;
+on torch and native it runs on the native SW batch, and
+ROVACA_BANDED_REALIGN=1 runs the banded kernel's plain versions instead.
+``--shards N`` runs N shard processes and merges their VCFs
+(parallel/sharded_runner.py), ``-t N`` prepares regions in N worker
 processes while this one launches the kernels (parallel/host_executor.py),
 and a torchrun environment (or rovaca_tpu's JAX_COORDINATOR_ADDRESS /
 JAX_NUM_PROCESSES / JAX_PROCESS_ID) makes each process one rank of a

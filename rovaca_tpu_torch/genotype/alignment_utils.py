@@ -12,9 +12,11 @@ Counterpart of rovaca_tpu/genotype/alignment_utils.py, whose cigar
 composition (``hap_to_ref_map``, ``left_align_indels``,
 ``realign_read_to_haplotype``) is carried over unchanged. The SW batch of
 ``realign_reads_to_their_best_haplotype`` runs through the port's banded
-kernel when ``use_banded_sw()`` says so, on the device it is given, or else
-on the native SW batch. The banded module (and with it torch) is imported
-only when the gate is on, so a host-only caller imports no torch.
+kernel when ``use_banded_sw(device)`` says so, on the device it is given:
+by default whenever that device is the card, as rovaca_tpu's device verdict
+on its accelerator does, and otherwise on the native SW batch. The banded
+module (and with it torch) is imported only when the gate is on, so a
+host-only caller imports no torch.
 """
 
 import os
@@ -323,12 +325,17 @@ def realign_read_to_haplotype(read, hap, h2r=None, sw_result=None,
     return read.copy(pos=new_pos, cigar=cigar)
 
 
-def use_banded_sw():
-    """Route realignment SW through the banded kernel? ROVACA_BANDED_REALIGN
-    set to anything but 0/false/empty forces it; unset or off, realignment
-    stays on the native SW batch (rovaca_tpu's default off a TPU)."""
+def use_banded_sw(device=None):
+    """Route realignment SW through the banded kernel on ``device``?
+    Counterpart of rovaca_tpu's ``_use_banded_tpu_sw``:
+    ROVACA_BANDED_REALIGN=0/false/empty turns it off and any other value on;
+    unset, it is on exactly when ``device`` is a CUDA device (None means the
+    card), the port's device verdict on its accelerator. ``device`` is a
+    torch.device or its name; it is not resolved here."""
     env = os.environ.get("ROVACA_BANDED_REALIGN")
-    return env is not None and env not in ("0", "false", "")
+    if env is not None:
+        return env not in ("0", "false", "")
+    return device is None or str(device).split(":")[0] == "cuda"
 
 
 def _best_haplotype(col, prio):
@@ -359,10 +366,14 @@ def _best_haplotype(col, prio):
 def realign_reads_to_their_best_haplotype(likelihoods, device=None):
     """Replace evidence reads with realigned versions (per-read best
     haplotype, ties to the reference haplotype). Mutates
-    ``likelihoods.reads``. With the banded gate on, the reads that are not
-    exact substrings of their haplotype go through one banded batch on
-    ``device`` (default: the card, resolved only when a batch runs, so it
-    raises then without one; "cpu" runs the plain versions). Returns (banded
+    ``likelihoods.reads``. With the banded gate on (``use_banded_sw``: by
+    default on the card, off on the CPU), the reads that are not exact
+    substrings of their haplotype go through one banded batch on ``device``
+    (default: the card, resolved only when a batch runs, so it raises then
+    without one; "cpu" keeps the native SW batch unless the environment
+    forces the banded path, which then runs its plain versions). A kernel
+    that fails to build or launch raises: nothing falls back to the native
+    SW batch but the alignments the band cannot hold. Returns (banded
     batches run, alignments that fell back to the host SW)."""
     haps = likelihoods.alleles
     if not haps:
@@ -394,7 +405,7 @@ def realign_reads_to_their_best_haplotype(likelihoods, device=None):
             else:
                 batch_idx.append(r)
                 pairs.append((hap.bases, read.bases))
-        if batch_idx and use_banded_sw():
+        if batch_idx and use_banded_sw(device):
             from ..ops.sw import sw_align_banded_batch
             # diagonals seeded from the read's offset in its hap's window
             diags = [max(0, likelihoods.reads[r].pos

@@ -17,8 +17,9 @@ they are; ``run`` and ``_call_contig`` with their JAX seams replaced:
 - ``-t`` > 1 prepares regions in ``HostExecutor`` workers, which never touch
   the card;
 - regions are genotyped by this package's ``RegionCaller``, whose
-  realignment runs the banded SW kernel on the engine's device when
-  ROVACA_BANDED_REALIGN is set (the native SW batch otherwise).
+  realignment runs the banded SW kernel on the card for the cuda engine and
+  the native SW batch for torch and native; ROVACA_BANDED_REALIGN=0 or =1
+  forces one or the other.
 """
 
 import dataclasses

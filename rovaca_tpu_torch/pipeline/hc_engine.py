@@ -12,9 +12,11 @@ pointed at the port:
 - ``call_region`` scores through the port's ``compute_likelihoods`` (a dense
   batch on the dense kernel, its plain version or the native engine);
 - ``finish_region`` realigns through the port's
-  ``realign_reads_to_their_best_haplotype``, whose banded SW batch runs on
-  the engine's device (``sw_device``): the card for 'cuda', the CPU for
-  'torch' and 'native'.
+  ``realign_reads_to_their_best_haplotype`` on the engine's device
+  (``sw_device``): for 'cuda' the card, where its SW batch runs the banded
+  kernel by default; for 'torch' and 'native' the CPU, where it runs the
+  native SW batch unless ROVACA_BANDED_REALIGN=1 forces the banded plain
+  versions.
 
 ``sw_launches`` counts the banded batches run and ``sw_fallbacks`` the
 alignments among them sent to the host SW. ``prepare_region`` is host-only:

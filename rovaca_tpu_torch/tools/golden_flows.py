@@ -5,9 +5,10 @@ their indexes, the truth list), each flow's inputs (``targets.bed``,
 ``recal.table``, ``dbsnp.vcf.gz`` with its ``.tbi``), and for every flow
 below the output that ``python -m rovaca_tpu.cli HaplotypeCaller
 --pairhmm-engine xla`` made on it, xz-compressed, beside rovaca_tpu's VCF and
-GVCF of the 1 Mb / 30x corpus (seed 424242) that is not committed, only its
-hashes. ``MANIFEST.json`` gives each file's command, seed, corpus arguments,
-engine and SHA-256.
+GVCF of the 1 Mb / 30x corpus (seed 424242) and of the adversarial corpus
+(``tools.golden_adversarial``, seed 20260505), neither of which is
+committed, only their hashes. ``MANIFEST.json`` gives each file's command,
+seed, corpus arguments, engine and SHA-256.
 
 ``run_flow`` runs one flow through a CLI entry point with this package's
 flags (``cli.main``, or rovaca_tpu's for the references) and returns its
@@ -34,6 +35,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden_torch")
 CORPUS = dict(genome_len=50_000, coverage=30, seed=424242)
 CORPUS_1MB = dict(genome_len=1_000_000, coverage=30, seed=424242)
+# tools.golden_adversarial.generate's corpus: three 150 kb contigs at 30x
+CORPUS_ADVERSARIAL = dict(seed=20260505)
+# the files a corpus not committed is pinned by, under the manifest's names
+CORPUS_HASHED = ("ref.fa", "sample.bam payload", "truth.txt")
 INTERVAL = ("chr20", 10_001, 30_000)       # the -L flow's span, 1-based
 BED_PADDING = 100
 # dbsnp.vcf.gz: truth sites under rs1000 + k; one truth site's row with
@@ -59,6 +64,9 @@ class Flow:
         return "GVCF" in self.args
 
 
+# the banded flows force the banded realignment: on the CPU engines it runs
+# K3's plain versions instead of the native SW batch; on cuda every flow
+# runs K3, since the card is the gate's default
 _BANDED = (("ROVACA_BANDED_REALIGN", "1"),)
 _GVCF = ("-e", "GVCF")
 FLOWS = {
@@ -116,14 +124,21 @@ def manifest_problems(golden=GOLDEN_DIR):
     return bad
 
 
-def corpus_1mb_problems(workdir, golden=GOLDEN_DIR):
-    """A generated 1 Mb corpus whose ref.fa or BAM payload is not the one
-    the committed 1 Mb references were made from (a stale corpus, not a
-    port that diverges)."""
-    want = load_manifest(golden)["corpus_1mb"]
-    got = {"ref.fa": sha256_file(os.path.join(workdir, "ref.fa")),
-           "sample.bam payload": sha256_bam_payload(
-               os.path.join(workdir, "sample.bam"))}
+def corpus_hashes(workdir, names=CORPUS_HASHED):
+    """SHA-256 of a corpus's files ``names`` (the manifest's names: the BAM
+    by its payload)."""
+    return {k: sha256_bam_payload(os.path.join(workdir, "sample.bam"))
+            if k == "sample.bam payload"
+            else sha256_file(os.path.join(workdir, k)) for k in names}
+
+
+def corpus_problems(workdir, key, golden=GOLDEN_DIR):
+    """A generated corpus whose files are not the ones the committed
+    references were made from (a stale corpus, not a port that diverges):
+    each hash the manifest's ``key`` entry pins ("corpus_1mb": ref.fa and
+    the BAM payload; "corpus_adversarial": truth.txt too)."""
+    want = load_manifest(golden)[key]
+    got = corpus_hashes(workdir, [k for k in CORPUS_HASHED if k in want])
     return [f"{k}: {got[k]} against the manifest's {want[k]}"
             for k in got if got[k] != want[k]]
 
@@ -238,17 +253,33 @@ def _records(path):
         return [ln for ln in f if not ln.startswith("#")]
 
 
-def effect_problems(name, result, golden=GOLDEN_DIR):
+def banded_realign(name, engine):
+    """Do flow ``name``'s runs on ``engine`` realign on the banded path?
+    The realignment gate (``use_banded_sw``) under the flow's environment,
+    for the engine's device: the card for cuda and auto, else the CPU."""
+    from ..genotype.alignment_utils import use_banded_sw
+    with _environ(FLOWS[name].env):
+        return use_banded_sw("cuda" if engine in ("cuda", "auto") else "cpu")
+
+
+def effect_problems(name, result, golden=GOLDEN_DIR, engine=None,
+                    sw_launches=()):
     """Why flow ``name``'s ``result`` (run_flow's) shows the flow did
     nothing, or []: BED calls only inside targets.bed +- BED_PADDING, -L
     only inside its span, dbSNP IDs on the truth sites and neither the
     decoy's nor the filtered record's, BQSR records not the plain VCF
     reference's, --resume the straight run's records in a file that ends
-    in the BGZF EOF block."""
+    in the BGZF EOF block; given ``engine`` and each run's
+    ``sw_launches`` (its banded batches), every run realigned on the
+    banded path exactly when ``banded_realign`` says it should."""
     from ..io import bgzf
     records, _ = golden_e2e.parse_vcf(result["output"])
     if not records:
         return [f"{name}: no records"]
+    want = banded_realign(name, engine)
+    if any((n > 0) != want for n in sw_launches):
+        return [f"{name}: banded batches {list(sw_launches)} on {engine}, "
+                f"expected {'some' if want else 'none'} in every run"]
     pos = sorted(k[1] for k in records)
     if name == "bed":
         with open(os.path.join(golden, "targets.bed")) as f:

@@ -54,10 +54,12 @@ from ..utils.platform import card_info, require_card
 from . import golden_e2e, golden_flows
 
 # name: (engine, GVCF, extra CLI flags, extra environment); the reference
-# binary's contenders are REFERENCE's
+# binary's contenders are REFERENCE's. The cuda contenders realign on the
+# banded SW kernel; cuda_native_sw keeps realignment on the native SW batch
 CONTENDERS = {
     "cuda": ("cuda", False, (), ()),
-    "cuda_banded": ("cuda", False, (), (("ROVACA_BANDED_REALIGN", "1"),)),
+    "cuda_native_sw": ("cuda", False, (),
+                       (("ROVACA_BANDED_REALIGN", "0"),)),
     "native": ("native", False, (), ()),
     "cuda_gvcf": ("cuda", True, (), ()),
     "native_gvcf": ("native", True, (), ()),
@@ -242,7 +244,7 @@ def pinned_references(corpus):
                 os.path.join(golden, "sample.bam"))):
         return {False: golden_flows.reference_name("vcf"),
                 True: golden_flows.reference_name("gvcf")}
-    if not golden_flows.corpus_1mb_problems(corpus):
+    if not golden_flows.corpus_problems(corpus, "corpus_1mb"):
         return {False: "1mb.vcf.xz", True: "1mb.g.vcf.xz"}
     return None
 

@@ -501,3 +501,35 @@ def test_race_of_one_cuda_round(cuda, tmp_path):
     assert 0 < c["card_share"] < 1
     assert c["ok"] and c["diff"] == "RESULT: MATCH", c["diff"]
     assert res["held_to"] == "rovaca_tpu's committed output"
+
+
+@pytest.mark.gpu
+def test_default_cuda_run_realigns_on_the_banded_kernel(cuda, tmp_path,
+                                                        monkeypatch):
+    """The CLI's default cuda run realigns on K3 (DP and traceback, as many
+    launches as banded batches, more than none) on a golden_e2e corpus with
+    sequencing errors; ROVACA_BANDED_REALIGN=0 launches no K3 and gives the
+    same records."""
+    from rovaca_tpu_torch import cli
+    from rovaca_tpu_torch.tools import golden_e2e
+    golden_e2e.generate(str(tmp_path), genome_len=20_000, coverage=30,
+                        seed=7)
+    runs = {}
+    for flag in (None, "0"):
+        if flag is None:
+            monkeypatch.delenv("ROVACA_BANDED_REALIGN", raising=False)
+        else:
+            monkeypatch.setenv("ROVACA_BANDED_REALIGN", flag)
+        out = str(tmp_path / f"out_{flag}.vcf")
+        stats = {}
+        dp, tb = banded.LAUNCHES, banded.TB_LAUNCHES
+        assert cli.main(["HaplotypeCaller", "-i", str(tmp_path / "sample.bam"),
+                         "-r", str(tmp_path / "ref.fa"), "-o", out,
+                         "--log-level", "WARNING"], stats=stats) == 0
+        assert banded.LAUNCHES - dp == banded.TB_LAUNCHES - tb \
+            == stats["sw_launches"]
+        with open(out) as f:
+            runs[flag] = (stats, [ln for ln in f if not ln.startswith("#")])
+    assert runs[None][0]["sw_launches"] > 0
+    assert runs["0"][0]["sw_launches"] == runs["0"][0]["sw_fallbacks"] == 0
+    assert runs[None][1] == runs["0"][1] and len(runs[None][1]) > 0

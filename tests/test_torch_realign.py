@@ -139,8 +139,10 @@ def test_device_resolved_only_when_a_banded_batch_runs(region_likelihoods,
                                       ("false", False), ("", False),
                                       ("1", True), ("yes", True)])
 def test_gate_reads_the_environment(monkeypatch, value, on):
+    """On the CPU the gate is off unless the environment turns it on (the
+    card's default: tests/test_torch_adversarial.py's truth table)."""
     if value is None:
         monkeypatch.delenv("ROVACA_BANDED_REALIGN", raising=False)
     else:
         monkeypatch.setenv("ROVACA_BANDED_REALIGN", value)
-    assert port_au.use_banded_sw() is on
+    assert port_au.use_banded_sw("cpu") is on
