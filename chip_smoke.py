@@ -116,24 +116,36 @@ exits non-zero:
    core at once, measured on this host); (d) tools.accuracy_eval.score_calls
    of (a)'s cuda VCF against the corpus's truth.txt (379 variants), the
    native VCF scoring the same.
+15. reference goldens: tests/golden/'s 64 PairHMM cases (what the C++
+   reference's rovaca::call_pairhmm scored into pairhmm_result_ref.txt)
+   through tools.golden_pairhmm.golden on the cuda engine, once as one
+   PairHMMScheduler flush group (K1) and once as one compute_likelihoods
+   call a case (K2): every case keeps the reference's read set and every
+   cell is within 4e-3 of it (tests/test_golden_pairhmm.py's bar); worst
+   abs, the cases outside diff's rtol 5e-5 / atol 1e-4 and the launches
+   printed. Each launch's raw output is then held to its plain version on
+   the same inputs with _hold's checks. tools.golden_assembly.golden: the
+   port's assembly (its g++ assembler built on this host) equal to the
+   reference FakeAssembler's assembly_result_ref.txt on all 80 regions.
 
 Order: the corpora of phases 5 and 6 are generated by two child processes
 started after phase 0. Beside them run only work that reports no time the
-kernels' line or a measurement takes: phase 1, phase 2 at K1's untimed G
-1024 shapes (their own lines mark their times as taken on a shared host),
-phase 8, phase 13 and phases 9-11 (on the 50 kb corpus, too small to time;
-their walls are taken on a shared host). The script then waits for the 1 Mb
-corpus and runs the rest of phase 2 and phases 3-7, 12 and 14 with the host
-to itself.
+kernels' line or a measurement takes: phase 1, phase 15 (it times
+nothing), phase 2 at K1's untimed G 1024 shapes (their own lines mark their
+times as taken on a shared host), phase 8, phase 13 and phases 9-11 (on the
+50 kb corpus, too small to time; their walls are taken on a shared host).
+The script then waits for the 1 Mb corpus and runs the rest of phase 2 and
+phases 3-7, 12 and 14 with the host to itself.
 
-Every kernel's counter is set to 0 just before each run of phases 5 and 6,
-before phases 7, 8, 10 and 12, each flow of 13 and each in-process run of 14
-(b), and read just after; phases 9, 11 and 14 (a) run in child processes,
+Every kernel's counter is set to 0 just before each run of phases 5, 6 and
+15, before phases 7, 8, 10 and 12, each flow of 13 and each in-process run of
+14 (b), and read just after; phases 9, 11 and 14 (a) run in child processes,
 whose schedulers' launch counts their summary lines print. The
 line before the last is the kernels' JSON summary: each kernel's launches on
-its path (and on the GVCF path, the adversarial runs and the flows, summed),
-its time and its plain version's at the timed shape (CUDA events on a stream
-held until the host has queued the call, so the card's time alone), and its
+its path (and on the GVCF path, the adversarial runs, the flows and the
+reference goldens), its time and its plain version's at the timed shape
+(CUDA events on a stream held until the host has queued the call, so the
+card's time alone), and its
 bound there,
 the larger of its bytes over 3.35 TB/s and its operations over the peak rate
 of their type (PEAK_*), counting the work this run's data needs; no single
@@ -1132,6 +1144,75 @@ def phase_flows(workdir):
     return totals
 
 
+def phase_reference_goldens():
+    """tests/golden/'s PairHMM cases on K1 (one flush group) and on K2 (a
+    compute_likelihoods call a case), held to the C++ reference's committed
+    output, each launch's raw output to its plain version; the port's
+    assembly held to the reference's on its 80 regions."""
+    import torch
+    from rovaca_tpu_torch.ops.pairhmm import api, dense, indexed
+    from rovaca_tpu_torch.pipeline import scheduler
+    from rovaca_tpu_torch.tools import golden_assembly, golden_pairhmm
+    atol = golden_pairhmm.GOLDEN_ATOL
+    out = {}
+    for name, module, attr, plain, use_scheduler in (
+            ("pairhmm_indexed", scheduler, "pairhmm_indexed_compact",
+             indexed.pairhmm_indexed_compact_torch, True),
+            ("pairhmm_dense", api, "pairhmm_dense", dense.pairhmm_dense_torch,
+             False)):
+        kernel = getattr(module, attr)
+        launched = []
+
+        def recording(*t):
+            res = kernel(*t)
+            launched.append((t, res))
+            return res
+
+        torch.cuda.synchronize()
+        reset_counts()
+        setattr(module, attr, recording)
+        try:
+            res = golden_pairhmm.golden("cuda", scheduler=use_scheduler)
+            torch.cuda.synchronize()
+        finally:
+            setattr(module, attr, kernel)
+        counts = read_counts()
+        tag = "K1, one flush group" if use_scheduler else \
+            "K2, compute_likelihoods a case"
+        print(f"[golden] {tag}: cases={res['cases']} worst_abs="
+              f"{res['worst_abs']:.3e} (bar {atol}) outside rtol 5e-5/atol "
+              f"1e-4={res['outside_tight']} kept-set or bar misses="
+              f"{len(res['mismatches'])} launches={counts[name]} "
+              f"(scheduler {res['scheduler_launches']})", flush=True)
+        for line in res["mismatches"][:20]:
+            print(f"[golden]   {line}", flush=True)
+        check(res["cases"] == 64, f"{tag}: {res['cases']} cases")
+        check(not res["mismatches"], f"{tag} misses the reference: "
+              f"{res['mismatches'][:5]}")
+        check(res["worst_abs"] <= atol, f"{tag}: worst abs "
+              f"{res['worst_abs']} > {atol}")
+        want = (res["scheduler_launches"] if use_scheduler else res["cases"])
+        check(counts[name] == len(launched) == want > 0,
+              f"{tag}: counted {counts[name]} launches, recorded "
+              f"{len(launched)}, expected {want}")
+        check(sum(counts.values()) == counts[name],
+              f"{tag}: other kernels launched: {counts}")
+        err = 0.0
+        for k, (t, k_out) in enumerate(launched):
+            err = max(err, _hold(k_out, plain(*t), f"{tag}, launch {k}"))
+        print(f"[golden] {tag}: {len(launched)} launches' raw outputs held "
+              f"to the plain version (rtol {RTOL}, same rescue set, padding "
+              f"0): max_abs_log10={err:.3e}", flush=True)
+        out[name] = {"launches": counts[name], "max_abs_err": err,
+                     "worst_abs": res["worst_abs"]}
+    n, bad = golden_assembly.golden()
+    print(f"[golden] assembly: {n - len(bad)}/{n} regions equal to the "
+          f"reference's assembly_result_ref.txt", flush=True)
+    check(n == 80 and not bad, f"assembly misses the reference: {bad[:5]}")
+    check_imports()
+    return out
+
+
 def region_tasks(workdir, n_min=MIN_REGIONS):
     """The corpus's first active regions, with their reads, found window by
     window as the caller's _call_contig does: [(region, reads)], ref, contig,
@@ -1667,6 +1748,7 @@ def main():
                 # beside the corpora's generation: nothing that times what
                 # the kernels' line or phase 14 reports
                 timed("build", phase_build)
+                goldens = timed("reference goldens", phase_reference_goldens)
                 k1_beside = timed(
                     "K1 vs plain, untimed G 1024 shapes", phase_kernels,
                     BESIDE_CORPUS, " (beside the corpus generation: times "
@@ -1682,8 +1764,13 @@ def main():
                 k1 = timed("K1 vs plain", phase_kernels,
                            [s for s in SHAPES if s not in BESIDE_CORPUS])
                 k1["max_abs_err"] = max(k1["max_abs_err"],
-                                        k1_beside["max_abs_err"])
+                                        k1_beside["max_abs_err"],
+                                        goldens["pairhmm_indexed"][
+                                            "max_abs_err"])
                 k2 = timed("K2 vs plain", phase_dense)
+                k2["max_abs_err"] = max(
+                    k2["max_abs_err"],
+                    goldens["pairhmm_dense"]["max_abs_err"])
                 k3 = timed("K3 vs plain", phase_sw)
                 main_path = timed("main path", phase_main_path, workdir)
                 adversarial = timed("adversarial path", phase_adversarial,
@@ -1710,6 +1797,8 @@ def main():
          "adversarial_launches": adversarial["pairhmm_indexed"],
          "flows_launches": flows["pairhmm_indexed"],
          "device_list_launches": device_list["pairhmm_indexed"],
+         "golden_launches": goldens["pairhmm_indexed"]["launches"],
+         "golden_worst_abs": goldens["pairhmm_indexed"]["worst_abs"],
          "max_abs_err": k1["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
@@ -1721,6 +1810,8 @@ def main():
          "replaces": "rovaca_tpu/ops/pairhmm/kernel.py:175",
          "launches": region["launches"],
          "device_list_launches": device_list["pairhmm_dense"],
+         "golden_launches": goldens["pairhmm_dense"]["launches"],
+         "golden_worst_abs": goldens["pairhmm_dense"]["worst_abs"],
          "max_abs_err": k2["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],

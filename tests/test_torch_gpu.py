@@ -533,3 +533,22 @@ def test_default_cuda_run_realigns_on_the_banded_kernel(cuda, tmp_path,
     assert runs[None][0]["sw_launches"] > 0
     assert runs["0"][0]["sw_launches"] == runs["0"][0]["sw_fallbacks"] == 0
     assert runs[None][1] == runs["0"][1] and len(runs[None][1]) > 0
+
+
+@pytest.mark.gpu
+def test_golden_pairhmm_on_the_card(cuda):
+    """tools.golden_pairhmm.golden on the card, 8 of the committed cases:
+    one flush group on K1 and one compute_likelihoods a case on K2, each
+    held to the C++ reference's committed output (the same kept reads,
+    every cell within 4e-3) and launching its kernel."""
+    from rovaca_tpu_torch.tools import golden_pairhmm
+    cases = range(0, 64, 8)
+    k1 = golden_pairhmm.golden("cuda", scheduler=True, cases=cases)
+    k2 = golden_pairhmm.golden("cuda", cases=cases)
+    for res in (k1, k2):
+        assert res["cases"] == 8
+        assert not res["mismatches"], res["mismatches"]
+        assert res["worst_abs"] <= golden_pairhmm.GOLDEN_ATOL
+    assert k1["launches"]["pairhmm_indexed"] == k1["scheduler_launches"] >= 1
+    assert k1["launches"]["pairhmm_dense"] == 0
+    assert k2["launches"] == {"pairhmm_indexed": 0, "pairhmm_dense": 8}

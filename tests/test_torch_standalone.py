@@ -64,6 +64,8 @@ def test_port_imports_nothing_of_rovaca_tpu():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 80
+    for tool in ("golden_pairhmm.py", "golden_assembly.py"):
+        assert os.path.join(PORT, "tools", tool) in files
     bad = [(os.path.relpath(f, REPO), line, mod)
            for f in files for line, mod in _imports(f)
            if mod.split(".")[0] == "rovaca_tpu"]
