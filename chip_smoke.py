@@ -127,24 +127,42 @@ exits non-zero:
    the same inputs with _hold's checks. tools.golden_assembly.golden: the
    port's assembly (its g++ assembler built on this host) equal to the
    reference FakeAssembler's assembly_result_ref.txt on all 80 regions.
+16. binary-free goldens: the corpora of tools.golden_bqsr (60 kb / 25x,
+   a recalibration table with both read groups, 49 quals, all 16 context
+   2-mers and cycles +-1..100) and tools.golden_modes (three contigs of
+   different lengths; reads split over two BAMs; dbSNP with rows at truth
+   sites, same-position other alleles and decoys; BED targets with -P 50),
+   generated by a child process started after phase 0, their hashes equal
+   to the manifest's; the port's CLI on each with the default engine (K1,
+   and K3 for the realignment), each held to rovaca_tpu's committed xla
+   VCF (``golden_e2e.diff``: ``RESULT: MATCH``, IDs included), and the
+   multibam merge property (the run over the pre-merged sample.bam gives
+   the records of the run over a.bam and b.bam); every run launches K1 as
+   often as its scheduler counted and K3's DP and traceback as often as
+   ``stats["sw_launches"]``, at least once each. tools.golden_region's
+   report on the card (K2, and K3 for the realignment) for the three
+   regions of the committed 50 kb corpus in region_report.txt: the trimmed
+   span and read list equal, the variants within QUAL_TOL, PL_TOL, AD, DP
+   and GQ equal; K2 launched once a region. Each run's wall, launches and
+   K3 fallbacks printed.
 
-Order: the corpora of phases 5 and 6 are generated by two child processes
-started after phase 0. Beside them run only work that reports no time the
-kernels' line or a measurement takes: phase 1, phase 15 (it times
+Order: the corpora of phases 5, 6 and 16 are generated by three child
+processes started after phase 0. Beside them run only work that reports
+no time the kernels' line or a measurement takes: phase 1, phase 15 (it times
 nothing), phase 2 at K1's untimed G 1024 shapes (their own lines mark their
 times as taken on a shared host), phase 8, phase 13 and phases 9-11 (on the
 50 kb corpus, too small to time; their walls are taken on a shared host).
 The script then waits for the 1 Mb corpus and runs the rest of phase 2 and
-phases 3-7, 12 and 14 with the host to itself.
+phases 3-7, 16, 12 and 14 (phase 16 takes no time any line reports).
 
-Every kernel's counter is set to 0 just before each run of phases 5, 6 and
-15, before phases 7, 8, 10 and 12, each flow of 13 and each in-process run of
-14 (b), and read just after; phases 9, 11 and 14 (a) run in child processes,
-whose schedulers' launch counts their summary lines print. The
-line before the last is the kernels' JSON summary: each kernel's launches on
-its path (and on the GVCF path, the adversarial runs, the flows and the
-reference goldens), its time and its plain version's at the timed shape
-(CUDA events on a stream held until the host has queued the call, so the
+Every kernel's counter is set to 0 just before each run of phases 5, 6, 15
+and 16, before phases 7, 8, 10 and 12, each flow of 13 and each in-process
+run of 14 (b), and read just after; phases 9, 11 and 14 (a) run in child
+processes, whose schedulers' launch counts their summary lines print. The
+line before the last is the kernels' JSON summary: each kernel's launches
+on its path (and on the GVCF path, the adversarial runs, the flows, the
+reference goldens and the binary-free goldens, ``tools_launches``), its
+time and its plain version's at the timed shape (CUDA events on a stream held until the host has queued the call, so the
 card's time alone), and its
 bound there,
 the larger of its bytes over 3.35 TB/s and its operations over the peak rate
@@ -761,9 +779,36 @@ def start_adversarial(workdir):
                   os.path.join(workdir, "adversarial_gen.log"))
 
 
-def wait_corpus(gen, corpus, key, tag):
-    """Wait for the child ``gen`` that writes ``corpus`` and check the
-    corpus's hashes against the manifest's ``key`` entry."""
+# phase 16's corpora, generated in one child process: argv[1] is the root
+_TOOLS_GEN = """
+import os, sys
+from rovaca_tpu_torch.tools import golden_bqsr, golden_modes
+golden_bqsr.generate(os.path.join(sys.argv[1], "bqsr"))
+for mode in golden_modes.MODES:
+    golden_modes.generate(mode, os.path.join(sys.argv[1], "modes", mode))
+"""
+
+
+def tools_dirs(workdir):
+    """(directory, manifest key) of each corpus of phase 16."""
+    from rovaca_tpu_torch.tools import golden_bqsr, golden_modes
+    root = os.path.join(workdir, "tools")
+    return [(os.path.join(root, "bqsr"), golden_bqsr.CORPUS_KEY)] + [
+        (os.path.join(root, "modes", m), golden_modes.corpus_key(m))
+        for m in golden_modes.MODES]
+
+
+def start_tools(workdir):
+    """Start generating phase 16's corpora into ``workdir``/tools in a child
+    process."""
+    return _start([sys.executable, "-c", _TOOLS_GEN,
+                   os.path.join(workdir, "tools")],
+                  os.path.join(workdir, "tools_gen.log"))
+
+
+def wait_corpus(gen, tag, *pinned):
+    """Wait for the child ``gen`` and check each corpus it wrote against the
+    manifest: ``pinned`` are (directory, manifest key) pairs."""
     from rovaca_tpu_torch.tools import golden_flows
     proc, started, log_path = gen
     t0 = time.perf_counter()
@@ -771,16 +816,18 @@ def wait_corpus(gen, corpus, key, tag):
     with open(log_path) as log:
         check(proc.returncode == 0, f"{tag} corpus generation exited "
               f"{proc.returncode}: {log.read()[-2000:]}")
-    pinned = golden_flows.load_manifest()[key]
-    print(f"[{tag}] corpus {pinned['args']} generated in a child process in "
+    manifest = golden_flows.load_manifest()
+    print(f"[{tag}] corpora {[manifest[k]['args'] for _, k in pinned]} "
+          f"generated in a child process in "
           f"{time.perf_counter() - started:.1f}s; waited "
-          f"{time.perf_counter() - t0:.1f}s for it here", flush=True)
-    stale = golden_flows.corpus_problems(corpus, key)
-    check(not stale, f"the generated corpus is not the one the committed "
-          f"rovaca_tpu references were made from: {stale}")
-    hashed = [k for k in golden_flows.CORPUS_HASHED if k in pinned]
-    print(f"[{tag}] corpus hashes ({', '.join(hashed)}) equal the "
-          f"manifest's", flush=True)
+          f"{time.perf_counter() - t0:.1f}s for them here", flush=True)
+    for corpus, key in pinned:
+        stale = golden_flows.corpus_problems(corpus, key)
+        check(not stale, f"the generated corpus {key} is not the one the "
+              f"committed rovaca_tpu references were made from: {stale}")
+        hashed = [k for k in manifest[key] if k not in ("args", "command")]
+        print(f"[{tag}] {key} hashes ({', '.join(hashed)}) equal the "
+              f"manifest's", flush=True)
 
 
 def stop(gen):
@@ -997,7 +1044,7 @@ def phase_adversarial(workdir, gen):
     import torch
     from rovaca_tpu_torch.tools import golden_adversarial
     corpus = os.path.join(workdir, "adversarial")
-    wait_corpus(gen, corpus, "corpus_adversarial", "adversarial")
+    wait_corpus(gen, "adversarial", (corpus, "corpus_adversarial"))
     totals = dict.fromkeys(("pairhmm_indexed", "sw_banded", "sw_traceback"),
                            0)
     for gvcf in (False, True):
@@ -1026,6 +1073,89 @@ def phase_adversarial(workdir, gen):
               f"the adversarial cuda {mode} diverges from rovaca_tpu's")
         for key in totals:
             totals[key] += counts[key]
+    check_imports()
+    return totals
+
+
+def _tools_run(tag, totals, run):
+    """One run of phase 16 on the card: ``run(stats)`` with every counter
+    set to 0 before and read after; K1 launched as often as the scheduler
+    counted and K3 as often as the caller's banded batches, at least once
+    each. Returns ``run``'s result."""
+    import torch
+    stats = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    out = run(stats)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    _print_run("tools", tag, stats)
+    check(counts["pairhmm_indexed"] == stats["launches"] > 0,
+          f"{tag}: K1 counted {counts['pairhmm_indexed']}, the scheduler "
+          f"{stats['launches']}")
+    _count_k3(counts, stats, tag)
+    for key in totals:
+        totals[key] += counts[key]
+    return out
+
+
+def phase_tools(workdir, gen):
+    """The binary-free legs of golden_bqsr, golden_modes and golden_region
+    on the card, each held to rovaca_tpu's committed output."""
+    import torch
+    from rovaca_tpu_torch.tools import golden_bqsr, golden_modes, \
+        golden_region
+    dirs = tools_dirs(workdir)
+    wait_corpus(gen, "tools", *dirs)
+    totals = dict.fromkeys(("pairhmm_indexed", "pairhmm_dense", "sw_banded",
+                            "sw_traceback"), 0)
+    bqsr = dirs[0][0]
+    _tools_run("golden_bqsr", totals, lambda st: golden_bqsr.run_ours(
+        bqsr, "auto", stats=st))
+    check(golden_bqsr.diff_committed(bqsr) == 0,
+          f"golden_bqsr: diverges from {golden_bqsr.REFERENCE}")
+    for mode, (d, _) in zip(golden_modes.MODES, dirs[1:]):
+        _tools_run(f"golden_modes {mode}", totals,
+                   lambda st: golden_modes.run_ours(mode, d, "auto",
+                                                    stats=st))
+        check(golden_modes.diff_committed(mode, d) == 0,
+              f"golden_modes {mode}: diverges from "
+              f"{golden_modes.REFERENCES[mode]}")
+        if mode == "multibam":
+            problems = _tools_run(
+                "golden_modes multibam over sample.bam", totals,
+                lambda st: golden_modes.merge_problems(d, "auto", stats=st))
+            check(not problems, f"the merge property: {problems}")
+            print("[tools] multibam: the run over a.bam and b.bam gives the "
+                  "records of the run over the pre-merged sample.bam",
+                  flush=True)
+    stats = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = golden_region.golden("auto", stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[tools] golden_region: regions={len(res)} wall_s={wall:.3f} "
+          f"K2 launches={counts['pairhmm_dense']} (compute_likelihoods "
+          f"calls {stats['likelihood_calls']}) K3 DP/traceback="
+          f"{counts['sw_banded']}/{counts['sw_traceback']} sw_launches="
+          f"{stats['sw_launches']} sw_fallbacks={stats['sw_fallbacks']}",
+          flush=True)
+    for region, problems in res.items():
+        print(f"[tools]   {region}: "
+              f"{'; '.join(problems) if problems else 'equal'}", flush=True)
+    check(len(res) == 3 and not any(res.values()),
+          f"golden_region diverges from {golden_region.REPORT}")
+    check(counts["pairhmm_dense"] == stats["likelihood_calls"] > 0,
+          f"golden_region: K2 counted {counts['pairhmm_dense']}, "
+          f"compute_likelihoods calls {stats['likelihood_calls']}")
+    check(counts["pairhmm_indexed"] == 0, "golden_region launched K1")
+    _count_k3(counts, stats, "golden_region")
+    for key in totals:
+        totals[key] += counts[key]
+    print(f"[tools] launches in phase 16: {totals}", flush=True)
     check_imports()
     return totals
 
@@ -1744,6 +1874,7 @@ def main():
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             gen = start_corpus(workdir)
             adv_gen = start_adversarial(workdir)
+            tools_gen = start_tools(workdir)
             try:
                 # beside the corpora's generation: nothing that times what
                 # the kernels' line or phase 14 reports
@@ -1759,8 +1890,8 @@ def main():
                 timed("--shards 2", phase_shards, workdir)
                 timed("-t 2", phase_host_workers, workdir)
                 timed("two ranks", phase_ranks, workdir)
-                timed("corpus", wait_corpus, gen, workdir, "corpus_1mb",
-                      "e2e")
+                timed("corpus", wait_corpus, gen, "e2e",
+                      (workdir, "corpus_1mb"))
                 k1 = timed("K1 vs plain", phase_kernels,
                            [s for s in SHAPES if s not in BESIDE_CORPUS])
                 k1["max_abs_err"] = max(k1["max_abs_err"],
@@ -1775,9 +1906,12 @@ def main():
                 main_path = timed("main path", phase_main_path, workdir)
                 adversarial = timed("adversarial path", phase_adversarial,
                                     workdir, adv_gen)
+                tools = timed("binary-free goldens", phase_tools, workdir,
+                              tools_gen)
             finally:
                 stop(gen)
                 stop(adv_gen)
+                stop(tools_gen)
             region = timed("region path", phase_region_path, workdir)
             gvcf = timed("GVCF path", phase_gvcf_path, workdir)
             timed("measure", phase_measure, workdir, {
@@ -1796,6 +1930,7 @@ def main():
          "gvcf_launches": gvcf["launches"],
          "adversarial_launches": adversarial["pairhmm_indexed"],
          "flows_launches": flows["pairhmm_indexed"],
+         "tools_launches": tools["pairhmm_indexed"],
          "device_list_launches": device_list["pairhmm_indexed"],
          "golden_launches": goldens["pairhmm_indexed"]["launches"],
          "golden_worst_abs": goldens["pairhmm_indexed"]["worst_abs"],
@@ -1811,6 +1946,7 @@ def main():
          "launches": region["launches"],
          "device_list_launches": device_list["pairhmm_dense"],
          "golden_launches": goldens["pairhmm_dense"]["launches"],
+         "tools_launches": tools["pairhmm_dense"],
          "golden_worst_abs": goldens["pairhmm_dense"]["worst_abs"],
          "max_abs_err": k2["max_abs_err"],
          "err_of": "log10 likelihood of pairs at or above 1e-28",
@@ -1826,6 +1962,7 @@ def main():
          "gvcf_launches": gvcf["sw_launches"],
          "adversarial_launches": adversarial["sw_banded"],
          "flows_launches": flows["sw_banded"],
+         "tools_launches": tools["sw_banded"],
          "device_list_launches": device_list["sw_banded"],
          "max_abs_err": k3["max_abs_err"],
          "err_of": "bt, colm, lastrow and edge (integers, bit-equal)",
@@ -1846,6 +1983,7 @@ def main():
          "gvcf_launches": gvcf["sw_launches"],
          "adversarial_launches": adversarial["sw_traceback"],
          "flows_launches": flows["sw_traceback"],
+         "tools_launches": tools["sw_traceback"],
          "device_list_launches": device_list["sw_traceback"],
          "max_abs_err": k3["tb_err"],
          "err_of": "packed slots (integers, equal slot for slot)",

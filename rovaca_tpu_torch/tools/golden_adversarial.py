@@ -261,10 +261,8 @@ def main(argv=None):
     p.add_argument("--engine", default="auto",
                    choices=["auto", "cuda", "torch", "native"])
     a = p.parse_args(argv)
-    if a.command in ("run", "all") and not os.path.exists(
-            golden_e2e.REF_BIN):
-        raise SystemExit(f"reference binary missing: {golden_e2e.REF_BIN} "
-                         "(build it with refshim/build_harness.sh)")
+    if a.command in ("run", "all"):
+        golden_e2e.require_binary()
     if a.command in ("gen", "all"):
         generate(a.dir, a.seed)
         if a.seed == SEED:

@@ -36,6 +36,7 @@ import numpy as np
 
 from ..assembly import assembler
 from ..reads.record import ReadRecord
+from . import golden_e2e
 
 REGION_PAD = 100  # k_default_region_padding, fake_assembler.cpp:22
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -336,9 +337,7 @@ def run_ref(outdir):
     """The reference's FakeAssembler harness on ``outdir``'s cases into
     result_ref.txt. Without the binary it stops with one line: nothing
     else stands in for it."""
-    if not os.path.exists(REF_BIN):
-        raise SystemExit(f"reference binary missing: {REF_BIN} (build it "
-                         "with refshim/build_harness.sh)")
+    golden_e2e.require_binary(REF_BIN)
     r = subprocess.run([REF_BIN, os.path.join(outdir, "cases.txt"),
                         os.path.join(outdir, "ref.txt"),
                         os.path.join(outdir, "result_ref.txt")],

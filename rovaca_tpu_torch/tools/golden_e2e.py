@@ -128,8 +128,9 @@ def run_ours(outdir, gvcf=False, engine="auto"):
     print("ours ->", out)
 
 
-def ref_command(outdir, out, gvcf=False):
-    """(argv, env) of the reference binary on ``outdir``'s corpus."""
+def ref_command(outdir, out, gvcf=False, extra=()):
+    """(argv, env) of the reference binary on ``outdir``'s corpus, with the
+    binary's flags ``extra`` appended."""
     cmd = [REF_BIN, "HaplotypeCaller",
            "-I", os.path.join(outdir, "sample.bam"),
            "-R", os.path.join(outdir, "ref.fa"),
@@ -137,20 +138,27 @@ def ref_command(outdir, out, gvcf=False):
            "--nthreads", "2"]
     if gvcf:
         cmd += ["--emit-ref-confidence", "GVCF"]
+    cmd += list(extra)
     env = dict(os.environ)
     env["LD_LIBRARY_PATH"] = os.path.dirname(REF_BIN)
     return cmd, env
 
 
-def run_ref(outdir, gvcf=False):
+def require_binary(path=REF_BIN):
+    """Stop with one line when a binary of .refbuild/ is missing: nothing
+    else stands in for the reference."""
+    if not os.path.exists(path):
+        raise SystemExit(f"reference binary missing: {path} (build it with "
+                         "refshim/build_harness.sh)")
+
+
+def run_ref(outdir, gvcf=False, extra=()):
     """The reference binary on ``outdir``'s corpus into ref.vcf (or
-    ref.g.vcf). Without the binary it stops with one line: nothing else
-    stands in for it."""
-    if not os.path.exists(REF_BIN):
-        raise SystemExit(f"reference binary missing: {REF_BIN} (build it "
-                         "with refshim/build_harness.sh)")
+    ref.g.vcf), with its flags ``extra``. Without the binary it stops with
+    one line."""
+    require_binary()
     out = os.path.join(outdir, "ref.g.vcf" if gvcf else "ref.vcf")
-    cmd, env = ref_command(outdir, out, gvcf)
+    cmd, env = ref_command(outdir, out, gvcf, extra)
     r = subprocess.run(cmd, env=env, capture_output=True, text=True,
                        timeout=3600)
     sys.stderr.write(r.stderr[-4000:] if r.stderr else "")

@@ -125,10 +125,10 @@ def manifest_problems(golden=GOLDEN_DIR):
 
 
 def corpus_hashes(workdir, names=CORPUS_HASHED):
-    """SHA-256 of a corpus's files ``names`` (the manifest's names: the BAM
-    by its payload)."""
-    return {k: sha256_bam_payload(os.path.join(workdir, "sample.bam"))
-            if k == "sample.bam payload"
+    """SHA-256 of a corpus's files ``names`` (the manifest's names: a BAM
+    by its payload, as "<name>.bam payload")."""
+    return {k: sha256_bam_payload(os.path.join(workdir, k[:-len(" payload")]))
+            if k.endswith(" payload")
             else sha256_file(os.path.join(workdir, k)) for k in names}
 
 
@@ -136,9 +136,11 @@ def corpus_problems(workdir, key, golden=GOLDEN_DIR):
     """A generated corpus whose files are not the ones the committed
     references were made from (a stale corpus, not a port that diverges):
     each hash the manifest's ``key`` entry pins ("corpus_1mb": ref.fa and
-    the BAM payload; "corpus_adversarial": truth.txt too)."""
+    the BAM payload; "corpus_adversarial": truth.txt too; the tools'
+    corpora their inputs as well)."""
     want = load_manifest(golden)[key]
-    got = corpus_hashes(workdir, [k for k in CORPUS_HASHED if k in want])
+    got = corpus_hashes(workdir, [k for k in want
+                                  if k not in ("args", "command")])
     return [f"{k}: {got[k]} against the manifest's {want[k]}"
             for k in got if got[k] != want[k]]
 

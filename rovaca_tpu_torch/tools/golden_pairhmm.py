@@ -42,6 +42,7 @@ import sys
 import numpy as np
 
 from . import golden_assembly as ga
+from . import golden_e2e
 
 GOLDEN = ga.GOLDEN
 REF_BIN = os.path.join(ga.REPO, ".refbuild", "bin", "pairhmm_harness")
@@ -127,9 +128,7 @@ def run_ref(outdir):
     """The reference engine's harness on ``outdir``'s cases into
     result_ref.txt. Without the binary it stops with one line: nothing
     else stands in for it."""
-    if not os.path.exists(REF_BIN):
-        raise SystemExit(f"reference binary missing: {REF_BIN} (build it "
-                         "with refshim/build_harness.sh)")
+    golden_e2e.require_binary(REF_BIN)
     r = subprocess.run([REF_BIN, os.path.join(outdir, "cases.txt"),
                         os.path.join(outdir, "result_ref.txt")],
                        capture_output=True, text=True, timeout=3600)

@@ -26,7 +26,8 @@ Here, on the CPU:
   manifest's, and rovaca_tpu's xla VCF and GVCF of it diffed with the
   committed ones (~5 minutes).
 
-Regenerate every reference (~13 minutes on 8 cores; the 1 Mb and
+Regenerate every reference, the golden tools' of
+test_torch_golden_tools.py included (~16 minutes on 8 cores; the 1 Mb and
 adversarial runs need a directory with ~250 MB free):
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_golden.py \\
@@ -349,6 +350,9 @@ def generate(work):
     with open(os.path.join(golden, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")
+    # the golden tools' references, which the rmtree above removed
+    from test_torch_golden_tools import generate as generate_tools
+    generate_tools(os.path.join(work, "tools"))
 
 
 if __name__ == "__main__":

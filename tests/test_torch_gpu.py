@@ -552,3 +552,66 @@ def test_golden_pairhmm_on_the_card(cuda):
     assert k1["launches"]["pairhmm_indexed"] == k1["scheduler_launches"] >= 1
     assert k1["launches"]["pairhmm_dense"] == 0
     assert k2["launches"] == {"pairhmm_indexed": 0, "pairhmm_dense": 8}
+
+
+def _tools_counts():
+    return (indexed.LAUNCHES, dense.LAUNCHES, banded.LAUNCHES,
+            banded.TB_LAUNCHES)
+
+
+def _held_run(run):
+    """``run(stats)`` on the card: the launches it made, K1 as often as
+    its scheduler counted, K3's DP and traceback as often as its banded
+    batches, at least once each."""
+    before = _tools_counts()
+    stats = {}
+    out = run(stats)
+    torch.cuda.synchronize()
+    k1, k2, dp, tb = (a - b for a, b in zip(_tools_counts(), before))
+    assert k1 == stats["launches"] > 0
+    assert dp == tb == stats["sw_launches"] > 0
+    assert k2 == 0
+    return out
+
+
+@pytest.mark.gpu
+def test_golden_bqsr_on_the_card(cuda, tmp_path):
+    """tools.golden_bqsr's corpus on the default engine (K1 and K3) gives
+    rovaca_tpu's committed VCF."""
+    from rovaca_tpu_torch.tools import golden_bqsr
+    d = str(tmp_path)
+    golden_bqsr.generate(d)
+    assert not golden_flows.corpus_problems(d, golden_bqsr.CORPUS_KEY)
+    _held_run(lambda st: golden_bqsr.run_ours(d, stats=st))
+    assert golden_bqsr.diff_committed(d) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["multicontig", "multibam", "dbsnp", "bed"])
+def test_golden_modes_on_the_card(cuda, tmp_path, mode):
+    """Each golden_modes corpus on the default engine (K1 and K3) gives
+    rovaca_tpu's committed VCF; multibam also its merge property."""
+    from rovaca_tpu_torch.tools import golden_modes
+    d = str(tmp_path)
+    golden_modes.generate(mode, d)
+    assert not golden_flows.corpus_problems(d, golden_modes.corpus_key(mode))
+    _held_run(lambda st: golden_modes.run_ours(mode, d, stats=st))
+    assert golden_modes.diff_committed(mode, d) == 0
+    if mode == "multibam":
+        assert _held_run(lambda st: golden_modes.merge_problems(
+            d, stats=st)) == []
+
+
+@pytest.mark.gpu
+def test_golden_region_on_the_card(cuda):
+    """tools.golden_region's report of the three committed regions on the
+    card (K2 once a region, K3 for the realignment) equals rovaca_tpu's."""
+    from rovaca_tpu_torch.tools import golden_region
+    before = _tools_counts()
+    stats = {}
+    res = golden_region.golden("cuda", stats)
+    torch.cuda.synchronize()
+    k1, k2, dp, tb = (a - b for a, b in zip(_tools_counts(), before))
+    assert len(res) == 3 and not any(res.values()), res
+    assert k1 == 0 and k2 == stats["likelihood_calls"] == 3
+    assert dp == tb == stats["sw_launches"] > 0
